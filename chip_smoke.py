@@ -8,21 +8,27 @@ Run from the repository root on a machine with one CUDA card (sm_90a):
 Phases, each of which must pass:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the nvcc build of kmb_tpu_torch/ops/csrc/product.cu.
+   the nvcc build of kmb_tpu_torch/ops/csrc/ (one process per source, the
+   seconds of each), and ptxas's registers and spills (`-Xptxas -v`).
 2. Both kernels (direct and flash) against the plain PyTorch version on the
    card, in all three precision tiers and for all four kernel maps, at
-   ragged shapes (D in {3, 64, 784}, E in {1, 8}), with the diagonal mask,
+   ragged shapes (D in {3, 9, 37, 64, 130, 784}, E in {1, 2, 4, 8, 13}, N
+   and M not multiples of 16, 64 or 128), with the diagonal mask,
    normalize_rows, density estimation, the deferred states, offsets and
-   limits, and large logits.
+   limits (also ending inside a tile), and large logits at D = 4 (small-D
+   loop) and D = 64 (tensor cores).
 3. The main path, through the port's runner (`run_on_arrays`, runs=2), on
    four datasets in three tiers, each held against its float64 truth
    computed on the card; every kernel launch is counted.
-4. Each kernel timed at the main path's shapes beside its plain version, its
-   bound and (for the flash kernel) the library's attention call, and held
-   against the plain version there too.
+4. Each kernel timed at the main path's shapes, in each tier, beside its
+   plain version, its bound and (for the flash kernel) the library's
+   attention call, and held against the plain version there too.  `ms` is
+   the wrapper's call (staging, launches, merge) with CUDA events;
+   `kernel_device_ms` is the kernel alone, from torch.profiler.
 
 The last line is {"ok": true, "device": {...}} and is printed only when
-every phase passed; the line before it holds the kernels' numbers.  Nothing
+every phase passed; the line before it holds the kernels' numbers, one
+entry per kernel, dataset and tier.  Nothing
 is written outside the git-ignored kernel build directory.
 """
 
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,11 +84,33 @@ REPLACES = {
 }
 SOURCE = "kmb_tpu_torch/ops/csrc/product.cu"
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, device
-# memory bandwidth, and special-function throughput per SM per clock.
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
+# TF32 and bf16 on the tensor cores, device memory bandwidth, and
+# special-function throughput per SM per clock.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16
+
+# The large-D form product on the tensor cores: (passes, peak) per tier.
+# The f32 tiers run 3xTF32 (lo.hi + hi.lo + hi.hi), bf16 one pass.
+TENSOR_CORE_FORM = {"float32": (3, PEAK_TF32_FLOPS),
+                    "float32x3": (3, PEAK_TF32_FLOPS),
+                    "bfloat16": (1, PEAK_BF16_FLOPS)}
+
+# The instantiations the main path launches, by (template, arguments as
+# ptxas's mangled names list them), for phase 1's register report:
+# small_d<map, D, E, flash, den, rnd>, large_d<map, E, flash, den, bf16>.
+MAIN_PATH_KERNELS = {
+    ("small_d_kernel", "0,3,1,0,0,0"): "cube, float32",
+    ("small_d_kernel", "0,3,1,0,0,1"): "cube, bfloat16",
+    ("small_d_kernel", "2,3,1,0,0,0"): "sphere, float32",
+    ("large_d_kernel", "0,1,0,0,0"): "D784, float32 (3xTF32)",
+    ("large_d_kernel", "0,1,0,0,1"): "D784, bfloat16",
+    ("large_d_kernel", "3,8,1,0,0"): "attention, float32 (3xTF32)",
+    ("large_d_kernel", "3,8,1,0,1"): "attention, bfloat16",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -125,6 +154,47 @@ def as_tuple(out):
         out, tuple) else (out,)
 
 
+def ptxas_kernels(report):
+    """(template, arguments, registers, spill bytes) of each kernel in a
+    ptxas -v report."""
+    out = []
+    for entry in re.split(r"Compiling entry function '", report)[1:]:
+        name = entry.split("'")[0]
+        kind = re.search(r"(small_d_kernel|large_d_kernel)", name)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        check(kind and regs and spill, f"unreadable ptxas entry {name}")
+        args = ",".join(re.findall(r"L[ib](\d+)E", name))
+        out.append((kind.group(1), args, int(regs.group(1)),
+                    int(spill.group(1)) + int(spill.group(2))))
+    return out
+
+
+def bound_ms(n, m, d, e, which, normalize, tier, sfu_rate):
+    """The least time the card could take for one call, and what bounds it.
+
+    The larger of: the form (2 D flops per pair) and the signal columns
+    (2 flops per pair and column) on the f32 units at D <= 8; at D > 8 the
+    form on the tensor cores (3 passes of TF32 in the f32 tiers, one of
+    bf16) plus the signal columns on the f32 units; one transcendental per
+    pair on the special-function units; each input read once and each
+    output written once from device memory.
+    """
+    cols = e + (1 if normalize and which == "direct" else 0)
+    if d <= 8:
+        terms = {"f32 FMA": 2.0 * n * m * (d + cols) / PEAK_F32_FLOPS}
+    else:
+        passes, peak = TENSOR_CORE_FORM[tier]
+        terms = {"tensor cores": 2.0 * n * m * d * passes / peak,
+                 "f32 FMA": 2.0 * n * m * cols / PEAK_F32_FLOPS}
+    terms["special-function units"] = n * m / sfu_rate
+    terms["memory"] = ((n + m) * d + m * e + n * e) * 4 / PEAK_BYTES
+    engine = max(terms, key=terms.get)
+    return (terms[engine] * 1e3, "bytes" if engine == "memory"
+            else "operations", engine)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -151,6 +221,23 @@ def main():
     library = _build.build()
     _build.load_library()
     print(f"built {library.name} in {time.perf_counter() - t0:.2f} s [{card}]")
+    report = _build.report_path(library).read_text()
+    for line in report.splitlines():
+        if line.startswith("== "):
+            print(f"phase 1: nvcc {line[3:]}")
+    kernels = ptxas_kernels(report)
+    for kind in ("small_d_kernel", "large_d_kernel"):
+        regs = [r for k, _, r, _ in kernels if k == kind]
+        check(regs, f"no {kind} in the build")
+        print(f"phase 1: {len(regs)} {kind} instantiations, {min(regs)}-"
+              f"{max(regs)} registers")
+    spilled = [(k, a, s) for k, a, _, s in kernels if s > 0]
+    print(f"phase 1: {len(spilled)} kernels spill: {spilled}")
+    for (kind, args), what in MAIN_PATH_KERNELS.items():
+        found = [(r, s) for k, a, r, s in kernels if (k, a) == (kind, args)]
+        check(len(found) == 1, f"{kind}<{args}> not in the build")
+        print(f"phase 1: {kind}<{args}> ({what}): {found[0][0]} registers, "
+              f"{found[0][1]} bytes spilled")
     sfu_rate = (SFU_PER_CLOCK_PER_SM * props.multi_processor_count
                 * max_clock_mhz * 1e6)
 
@@ -175,7 +262,9 @@ def main():
             worst[which] = max(worst[which], (rel, label))
         n_cases += 1
 
-    shapes = ((1037, 1511, 3, 1), (517, 1203, 64, 8), (300, 411, 784, 1))
+    # N and M not multiples of 16, 64 or 128; D not multiples of 8 or 32.
+    shapes = ((1037, 1511, 3, 1), (517, 1203, 64, 8), (300, 411, 784, 1),
+              (301, 1203, 9, 13), (211, 999, 37, 2), (257, 1031, 130, 4))
     for tier in TIERS:
         tol = KERNEL_TOL[tier]
         for n, m, d, e in shapes:
@@ -201,23 +290,34 @@ def main():
                 limits = dict(row_offset=5, col_offset=3,
                               col_limit=3 + m - 7, row_limit=5 + n - 4,
                               mask_diagonal=True)
-                hold(f"{tag} offsets and limits", "direct", tol, x, y, b,
-                     **limits, **common)
-                if name in LOG_KERNELS:
-                    hold(f"{tag} offsets and limits, flash", "flash", tol,
-                         x, y, b, normalize_rows=True, deferred=True,
-                         **limits, **common)
+                # Limits ending inside a 128-wide tile.
+                inside = dict(row_offset=40, col_offset=3,
+                              col_limit=3 + min(m, 700) - 5,
+                              row_limit=40 + min(n, 200) - 3,
+                              mask_diagonal=True)
+                for lname, lim in (("offsets and limits", limits),
+                                   ("limits inside a tile", inside)):
+                    hold(f"{tag} {lname}", "direct", tol, x, y, b, **lim,
+                         **common)
+                    if name in LOG_KERNELS:
+                        hold(f"{tag} {lname}, flash", "flash", tol, x, y, b,
+                             normalize_rows=True, deferred=True, **lim,
+                             **common)
             # Same points: the diagonal of the singular kernel is masked.
             hold(f"{tier} inverse-distance same points D={d}", "direct", tol,
                  y, y, b, kernel_name="inverse-distance", precision=tier)
-        # Large logits: exp(<x, y>) with logits above 100.
-        xl = cuda(10.0 * rng.standard_normal((161, 4)))
-        yl = cuda(10.0 * rng.standard_normal((243, 4)))
-        bl = cuda(rng.standard_normal((243, 1)))
-        check(float((xl @ yl.T).max()) > 100.0, "large-logit case too small")
-        hold(f"{tier} large logits", "flash",
-             max(LARGE_LOGIT_TOL, KERNEL_TOL[tier]), xl, yl, bl,
-             kernel_name="exponential", normalize_rows=True, precision=tier)
+        # Large logits: exp(<x, y>) with logits above 100, in the small-D
+        # loop (D = 4) and on the tensor cores (D = 64).
+        for d, scale in ((4, 10.0), (64, 3.0)):
+            xl = cuda(scale * rng.standard_normal((161, d)))
+            yl = cuda(scale * rng.standard_normal((243, d)))
+            bl = cuda(rng.standard_normal((243, 1)))
+            check(float((xl @ yl.T).max()) > 100.0,
+                  "large-logit case too small")
+            hold(f"{tier} large logits D={d}", "flash",
+                 max(LARGE_LOGIT_TOL, KERNEL_TOL[tier]), xl, yl, bl,
+                 kernel_name="exponential", normalize_rows=True,
+                 precision=tier)
     print(f"phase 2: {n_cases} cases, kernels match the plain version")
     for which, (rel, label) in worst.items():
         print(f"phase 2: worst {which} kernel relative error {rel:.3e} "
@@ -235,7 +335,7 @@ def main():
         datasets[name] = arrays
 
     _build.reset_launch_counts()
-    per_run = []
+    per_run = {}   # (dataset, tier) -> launches of its kernel
     for name, which, what in MAIN_PATH:
         arrays = datasets[name]
         n, m = len(arrays["target_points"]), len(arrays["source_points"])
@@ -267,7 +367,7 @@ def main():
                   f"{name} {tier}: RMS error {rel:.3e} > "
                   f"{MAIN_PATH_BOUND[tier]}")
             qt = row.attrs["query_time"]
-            per_run.append((name, tier, qt, rel))
+            per_run[name, tier] = launched[symbol]
             print(f"{name} [{tier}, {which} kernel, {what}]: query "
                   f"{qt * 1e3:.3f} ms, {n * m / qt:.4e} pairs/s, RMS rel "
                   f"error {rel:.3e}, launches {launched} [{card}]")
@@ -290,7 +390,26 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    report = {}
+    def kernel_device_ms(fn, reps=3):
+        """Device time of one launch of the hand-written kernel (the
+        profiler's records whose name holds "_d_kernel", averaged over the
+        records it kept), so `ms` splits into kernel and wrapper: the main
+        path launches one kernel per call (E <= 8).  None if the profiler
+        saw no such record."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if "_d_kernel" in e.key]
+        count = sum(e.count for e in found)
+        us = sum(getattr(e, "self_device_time_total", 0) for e in found)
+        return us / count / 1e3 if count and us > 0 else None
+
+    entries = []
     for name, which, _ in MAIN_PATH:
         arrays = datasets[name]
         y = cuda(arrays["source_points"])
@@ -300,15 +419,6 @@ def main():
         m, e = b.shape
         normalize = bool(arrays["normalize_rows"])
         kw = dict(kernel_name=arrays["kernel"], normalize_rows=normalize)
-        # Work of one call: 2 (D + columns) flops and one transcendental
-        # per pair (the Pallas cost estimate, product.py:601-605, unpadded);
-        # each input read once, each output written once.
-        cols = e + (1 if normalize and which == "direct" else 0)
-        t_ops = max(2.0 * n * m * (d + cols) / PEAK_F32_FLOPS,
-                    n * m / sfu_rate)
-        t_bytes = ((n + m) * d + m * e + n * e) * 4 / PEAK_BYTES
-        bound = max(t_ops, t_bytes) * 1e3
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
         library_ms = None
         if which == "flash":
             q, k, v = (t[None, None] for t in (x, y, b))
@@ -333,25 +443,32 @@ def main():
             ms = time_ms(lambda: kernel_matvec(x, y, b, **kwt), reps)
             plain_ms = time_ms(lambda: kernel_matvec_torch(x, y, b, **kwt),
                                2)
-            print(f"{which} kernel, {name} [{tier}]: {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-                  f"library {library_ms if library_ms is None else round(library_ms, 4)} ms, "
-                  f"{n * m / (ms * 1e-3):.4e} pairs/s, max_abs_err vs plain "
-                  f"{err:.3e} [{card}]")
-            if tier == "float32" and which not in report:
-                report[which] = dict(
-                    name=which, route="cuda", source=SOURCE,
-                    replaces=REPLACES[which],
-                    launches=launches[getattr(_build, which.upper()).symbol],
-                    max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                    library_ms=library_ms, at=name, precision=tier)
+            device_ms = kernel_device_ms(lambda: kernel_matvec(x, y, b,
+                                                               **kwt))
+            kernel_alone = (None if device_ms is None
+                            else round(device_ms, 4))
+            bound, bound_by, engine = bound_ms(n, m, d, e, which, normalize,
+                                               tier, sfu_rate)
+            lib = None if library_ms is None else round(library_ms, 4)
+            print(f"{which} kernel, {name} [{tier}]: {ms:.4f} ms (kernel "
+                  f"alone {kernel_alone} ms), plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({engine}), "
+                  f"library {lib} ms, {n * m / (ms * 1e-3):.4e} pairs/s, "
+                  f"max_abs_err vs plain {err:.3e} [{card}]")
+            entries.append(dict(
+                name=which, route="cuda", source=SOURCE,
+                replaces=REPLACES[which], launches=per_run[name, tier],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=library_ms, at=name,
+                precision=tier, bound_engine=engine,
+                kernel_device_ms=device_ms))
         del x, y, b
         torch.cuda.empty_cache()
 
-    check(set(report) == {"direct", "flash"}, "a kernel was not timed")
+    check({entry["name"] for entry in entries} == {"direct", "flash"},
+          "a kernel was not timed")
     print(card)
-    print(json.dumps({"kernels": [report["direct"], report["flash"]]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,7 @@ nothing of kmb_tpu: what it needs of that package's JAX-free modules
 definitions and result store) it keeps as its own copies.
 
 The streaming kernel product and attention run on the card through two
-hand-written CUDA kernels (`kmb_tpu_torch/ops/csrc/product.cu`), built
+hand-written CUDA kernels (`kmb_tpu_torch/ops/csrc/`), built
 with nvcc at first use and bound with ctypes.  Every entry point takes
 an explicit `device`, defaulting to "cuda"; with no CUDA device it raises
 unless the caller passes device="cpu", which runs the plain PyTorch

@@ -4,8 +4,8 @@
 expands kmb_tpu_torch/algos.yaml into the matching experiment definitions,
 drops those whose result files already exist, shuffles the rest and runs
 them serially in this process.  `--hardware` picks the algos.yaml tier and
-the device: GPU runs on "cuda", CPU on "cpu".  Without it the tier is GPU
-when a CUDA device is present, else CPU.
+the device: GPU (the default) runs on "cuda" and raises when there is no
+CUDA device; CPU runs on "cpu", and only when asked for.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import os
 import random
 import sys
 
+from kmb_tpu_torch import resolve_device
 from kmb_tpu_torch.datasets import DATASETS, get_dataset
 from kmb_tpu_torch.definitions import (
     DEFAULT_DEFINITIONS, InstantiationStatus, algorithm_status,
@@ -48,9 +49,9 @@ def make_parser():
         default="product-sphere-D3-E1-M1000-N1000-inverse-distance",
         help="dataset to benchmark on")
     parser.add_argument(
-        "--hardware", metavar="TIER", default=None, choices=["CPU", "GPU"],
+        "--hardware", metavar="TIER", default="GPU", choices=["CPU", "GPU"],
         help="hardware tier (selects algos.yaml entries and the device); "
-             "default: GPU when a CUDA device is present, else CPU")
+             "GPU needs a CUDA device, CPU runs the plain PyTorch versions")
     parser.add_argument(
         "--definitions", metavar="FILE", default=DEFAULT_DEFINITIONS,
         help="load algorithm definitions from FILE")
@@ -82,21 +83,12 @@ def make_parser():
     return parser
 
 
-def detect_hardware():
-    """GPU when torch sees a CUDA device, else CPU."""
-    import torch
-
-    return "GPU" if torch.cuda.is_available() else "CPU"
-
-
 def device_for(hardware):
     return "cuda" if hardware == "GPU" else "cpu"
 
 
 def plan_experiments(args):
     """Expand definitions and drop already-completed experiments."""
-    if args.hardware is None:
-        args.hardware = detect_hardware()
     dataset_file, dimension = get_dataset(
         args.dataset, device=device_for(args.hardware))
     kernel = dataset_file.attrs["kernel"]
@@ -163,8 +155,12 @@ def main(argv=None):
     if not args.local:
         raise SystemExit(
             "only in-process runs are ported so far: pass --local")
-    if args.hardware is None:
-        args.hardware = detect_hardware()
+    # Fails here, before any dataset or result is written, when the tier's
+    # device is missing: the port never carries on on the CPU unasked.
+    try:
+        resolve_device(device_for(args.hardware))
+    except RuntimeError as exc:
+        raise SystemExit(f"--hardware {args.hardware}: {exc}") from None
 
     if not logging.getLogger().handlers:
         logging.basicConfig(

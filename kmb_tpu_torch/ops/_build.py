@@ -1,12 +1,16 @@
 """Build and bind the hand-written CUDA kernels.
 
-`csrc/product.cu` is compiled by plain `nvcc` into a shared library with a
-C interface and loaded with ctypes, at first use, once per process.  This
+The sources under `csrc/` are compiled by plain `nvcc`, one process per
+source, all started together, into objects that one more `nvcc` links into
+a shared library with a C interface (`product.cu` holds the entry points).
+The library is loaded with ctypes, at first use, once per process.  This
 takes seconds; `torch.utils.cpp_extension.load` compiles against PyTorch's
-headers and takes minutes for the same file, which every fresh checkout
+headers and takes minutes for the same files, which every fresh checkout
 would pay again.  The library lands in `kmb_tpu_torch/_build/` (git
-ignored), named by a hash of the source and the command, so an edited
-source is rebuilt and an unchanged one is reused.
+ignored), named by a hash of the sources and the commands, so an edited
+source is rebuilt and an unchanged one is reused.  Beside it,
+`<library>.ptxas.txt` keeps ptxas's report (`-Xptxas -v`: registers, shared
+memory and spills of every kernel, and each compile's seconds).
 
 Each kernel is a `CudaKernel`: a callable that launches through ctypes,
 raises on a non-zero `cudaError_t`, and counts its launches.
@@ -21,9 +25,16 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "product.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "product.cu"   # the C entry points
+SOURCES = (SOURCE, *(CSRC / f"small_d_{dp}_{scheme}.cu" for dp in (3, 8)
+                     for scheme in ("direct", "flash")),
+           CSRC / "large_d_tf32.cu", CSRC / "large_d_bf16.cu")
+HEADERS = (CSRC / "common.cuh", CSRC / "small_d.cuh", CSRC / "large_d.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -47,19 +58,59 @@ def find_nvcc() -> str | None:
 
 
 def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
-    """The compile line: sm_90a, C++17, -O3, a position-independent .so."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", str(output), str(source)]
+    """Compile one source: sm_90a, C++17, -O3, position-independent code,
+    with ptxas's register and spill report."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-c", "-o", str(output), str(source)]
+
+
+def link_command(nvcc: str, objects, output: Path) -> list[str]:
+    """Link the objects into the shared library."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(output),
+            *(str(o) for o in objects)]
 
 
 def library_path(nvcc: str) -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest = hashlib.sha256()
+    for path in (*SOURCES, *HEADERS):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     digest.update(" ".join(nvcc_command(nvcc, SOURCE, Path("x"))).encode())
+    digest.update(" ".join(link_command(nvcc, [], Path("x"))).encode())
     return BUILD_DIR / f"libkmb_product_{digest.hexdigest()[:16]}.so"
 
 
+def report_path(library: Path) -> Path:
+    """ptxas's report for a built library."""
+    return library.with_suffix(".ptxas.txt")
+
+
+def _run(cmd):
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - start
+
+
+def _run_all(commands):
+    """Run the commands concurrently; raise with the output of any failure.
+
+    Returns each command's output, headed by its source and seconds.
+    """
+    with ThreadPoolExecutor(max_workers=len(commands)) as pool:
+        results = list(pool.map(_run, commands))
+    failed = [f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n"
+              f"{proc.stdout[-4000:]}"
+              for cmd, (proc, _) in zip(commands, results)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [f"== {Path(cmd[-1]).name} ({seconds:.1f} s)\n{proc.stdout}"
+            for cmd, (proc, seconds) in zip(commands, results)]
+
+
 def build() -> Path:
-    """Compile product.cu unless an identical build exists; return its path."""
+    """Compile the kernels unless an identical build exists; return its path."""
     import torch
 
     if not torch.cuda.is_available():
@@ -70,26 +121,23 @@ def build() -> Path:
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (set CUDA_HOME or put nvcc on PATH); it is needed "
-            f"to build {SOURCE.name}")
+            f"to build {', '.join(s.name for s in SOURCES)}")
     target = library_path(nvcc)
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a private name and rename, so concurrent processes never
+    # Build in a private directory and rename, so concurrent processes never
     # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(nvcc, SOURCE, Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        logs = _run_all([nvcc_command(nvcc, src, obj)
+                         for src, obj in zip(SOURCES, objects)])
+        library = Path(tmp) / target.name
+        _run_all([link_command(nvcc, objects, library)])
+        report = Path(tmp) / report_path(target).name
+        report.write_text("".join(logs))
+        os.replace(report, report_path(target))
+        os.replace(library, target)
     return target
 
 
@@ -100,19 +148,33 @@ def load_library() -> ctypes.CDLL:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            # n, n_ok, m_eff, d, nc, kernel, diag, shift, splits, round_bf16,
-            # then the stream.
+            # n, n_ok, m_eff, d, nc, kernel, diag, shift, splits, bf16, then
+            # the stream.
             ints = [i32] * 10 + [ptr]
             lib.kmb_direct_matvec.argtypes = [ptr] * 7 + ints
             lib.kmb_direct_matvec.restype = i32
             lib.kmb_flash_matvec.argtypes = [ptr] * 8 + ints
             lib.kmb_flash_matvec.restype = i32
-            lib.kmb_rows_per_block.argtypes = [i32]
-            lib.kmb_rows_per_block.restype = i32
+            # d, nc, kernel, flash, den, bf16 -> rows, blocks per SM.
+            lib.kmb_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)] * 2
+            lib.kmb_plan.restype = i32
             lib.kmb_error_string.argtypes = [i32]
             lib.kmb_error_string.restype = ctypes.c_char_p
             _library = lib
     return _library
+
+
+def plan(d, nc, kernel, flash, den, bf16) -> tuple[int, int]:
+    """(target rows per block, blocks one SM holds) of an instantiation."""
+    lib = load_library()
+    rows, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.kmb_plan(d, nc, kernel, int(flash), int(den), int(bf16),
+                        ctypes.byref(rows), ctypes.byref(per_sm))
+    if code != 0:
+        raise RuntimeError(
+            f"kmb_plan failed: CUDA error {code} "
+            f"({lib.kmb_error_string(code).decode()})")
+    return rows.value, per_sm.value
 
 
 class CudaKernel:

@@ -20,435 +20,125 @@
 //   - with diag set, the global diagonal row_offset + i == col_offset + j,
 //     i.e. j == i + shift, is skipped.
 //
-// What bounds them on an H100: the work is N*M pairs, each one form
-// (D fused multiply-adds), one transcendental (exp2f or rsqrtf, on the
-// special-function units: 16 per clock per SM) and E multiply-adds; the
-// bytes moved are only (N + M) * D + M * E + N * E floats.  So the kernels
-// are bound by operations, never by device memory.  The design keeps every
-// per-pair value in registers or shared memory and reads each input tile
-// from device memory once per block:
+// The work is N*M pairs, each one form (D multiply-adds), one
+// transcendental and E multiply-adds; the bytes moved are only
+// (N + M) * D + M * E + N * E values, so both kernels are bound by
+// operations.  Each comes in two forms, chosen by D:
 //
-//   small D (D <= 8, padded to 3 or 8 with zero coordinates by the wrapper,
-//   which leaves distances and dot products unchanged): each thread owns two
-//   target rows, their coordinates and accumulators in registers; a tile of
-//   128 source points and their signal is staged in shared memory and read
-//   by every thread as a broadcast, once for both rows.  The form is the
-//   cancellation-safe difference form in f32, with the kernel's sign folded
-//   into its fused multiply-adds.  Per pair: 2D FP32 ops, one transcendental.
+//   small D (D <= 8, padded to 3 or 8 with zero coordinates by the wrapper):
+//     small_d.cuh, the difference form on the FP32 units, four target rows
+//     per thread; bound by the special-function units when it issues about
+//     7 other instructions per pair.
+//   large D (D > 8, padded to whole 64-byte chunks): large_d.cuh, the form
+//     product on the tensor cores (3xTF32 in the float32 tiers, bf16 in the
+//     bfloat16 tier) with the map, masks and signal product applied to the
+//     accumulator fragments in registers.
 //
-//   large D (D > 8): a block owns 64 target rows.  For each tile of 64
-//   sources, 256 threads compute the 64 x 64 dot-product tile as a register
-//   blocked product (4 x 4 per thread, D streamed through shared memory in
-//   chunks of 16), complete it to |x|^2 + |y|^2 - 2<x, y> with norms the
-//   wrapper computed once, and store the form tile in shared memory.  Then
-//   four threads per row apply the map and masks to 16 columns each and keep
-//   partial accumulators in registers; the four partials are merged with
-//   warp shuffles once, after the last tile (a sum for the direct kernel,
-//   the exp2 merge of (acc, m, l) for the flash kernel).
+// Both: when the row blocks alone would leave SMs idle (N = 10^4 gives 79
+// blocks of 128 rows for 132 SMs), the wrapper splits the source range over
+// the grid's x dimension; each split writes its own partial state and the
+// wrapper merges them (a sum, or the flash merge).
 //
-//   Both: when the row blocks alone would leave SMs idle (N = 10^4 gives
-//   157 blocks of 64 rows for 132 SMs), the wrapper splits the source range
-//   over a second grid dimension; each split writes its own partial state
-//   and the wrapper merges them (a sum, or the flash merge).
-//
-// Later work: wgmma for the large-D form, TMA and pipelined tiles.
-//
-// Precision tiers: "float32" and "float32x3" run f32 everywhere (so
-// float32x3 is at least f32x3 accurate).  "bfloat16": the wrapper rounds the
-// points and the signal to bf16; the kernel rounds each kernel value (the
-// flash kernel: each exp2 weight) to bf16 before its product with the
-// signal, and accumulates in f32.  Row sums and the flash normaliser use the
-// unrounded f32 values, as kmb_tpu's kernel_matvec_xla does.
+// Precision tiers: "float32" and "float32x3" run f32 arithmetic, with the
+// large-D form product in 3xTF32 (f32-accurate; the kernel splits each
+// staged f32 value into TF32 parts in registers).  "bfloat16": the wrapper
+// rounds the points and the signal to bf16; the kernel rounds each kernel
+// value (the flash kernel: each exp2 weight) to bf16 before its product with
+// the signal, and accumulates in f32.  Row sums and the flash normaliser use
+// the unrounded f32 values, as kmb_tpu's kernel_matvec_xla does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
+namespace kmb {
 namespace {
 
-constexpr float kNegInf = -1e30f;  // masked logit, as FLASH_NEG_INF upstream
-constexpr unsigned kFullMask = 0xffffffffu;
-
-enum KernelId { kGaussian = 0, kAbsExp = 1, kInverseDistance = 2, kExponential = 3 };
-
-// Maps from the signed, scaled form g (KernelSpec.scaled_fn / scaled_log2_fn);
-// kNegate is KernelSpec.form_sign == -1.
-template <int K> struct KernelMap;
-template <> struct KernelMap<kGaussian> {
-  static constexpr bool kDot = false;
-  static constexpr bool kNegate = true;
-  __device__ static float value(float g) { return exp2f(g); }
-  __device__ static float logit(float g) { return g; }
-};
-template <> struct KernelMap<kAbsExp> {
-  static constexpr bool kDot = false;
-  static constexpr bool kNegate = false;
-  __device__ static float value(float g) { return exp2f(-sqrtf(fmaxf(g, 0.f))); }
-  __device__ static float logit(float g) { return -sqrtf(fmaxf(g, 0.f)); }
-};
-template <> struct KernelMap<kInverseDistance> {
-  static constexpr bool kDot = false;
-  static constexpr bool kNegate = false;
-  __device__ static float value(float g) { return rsqrtf(fmaxf(g, 0.f)); }
-  __device__ static float logit(float g) { return g; }  // no log form: never flash
-};
-template <> struct KernelMap<kExponential> {
-  static constexpr bool kDot = true;
-  static constexpr bool kNegate = false;
-  __device__ static float value(float g) { return exp2f(g); }
-  __device__ static float logit(float g) { return g; }
-};
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+// The instantiation for a shape, its shared memory raised above the 48 KB
+// default where it needs more.
+cudaError_t select(const Shape& s, Launch* l) {
+  const bool found =
+      s.large ? (s.bf16 ? large_d_bf16_launch(s, l) : large_d_tf32_launch(s, l))
+              : (small_d_3_direct_launch(s, l) || small_d_3_flash_launch(s, l) ||
+                 small_d_8_direct_launch(s, l) || small_d_8_flash_launch(s, l));
+  if (!found) return cudaErrorInvalidValue;
+  if (l->smem > 48 * 1024) {
+    return cudaFuncSetAttribute(l->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, l->smem);
+  }
+  return cudaSuccess;
 }
 
-struct Args {
-  const float* x;    // (n, d) target points, scaled (and rounded) upstream
-  const float* y;    // (m, d) source points
-  const float* b;    // (m, nc) signal
-  const float* xsq;  // (n,) |x|^2, large-D squared-distance kernels only
-  const float* ysq;  // (m,) |y|^2
-  float* out;        // (splits, n, nc) num, or acc for the flash kernel
-  float* aux0;       // (splits, n) den (may be null), or the flash running max m
-  float* aux1;       // (splits, n) the flash normaliser l
-  int n, n_ok, m_eff, d, diag, shift;
-  int rnd;           // round kernel values to bf16 before the product
-};
-
-// The local source column on the global diagonal of row i, or -1.
-__device__ __forceinline__ int diagonal_column(const Args& a, int i) {
-  const long long j = (long long)i + a.shift;
-  return (a.diag && j >= 0 && j < a.m_eff) ? (int)j : -1;
+// d: padded coordinates per point; large D counts 32-bit words, so bf16
+// points (two per word) need an even d.
+Shape make_shape(int d, int nc, int kernel, bool flash, bool den, bool bf16) {
+  Shape s{d, nc, kernel, flash, den, bf16, d > 8};
+  if (s.large && bf16) s.d = d % 2 == 0 ? d / 2 : -1;
+  return s;
 }
 
-// The source columns [begin, end) of split blockIdx.y; split s writes its
-// partial state at out + s * n * NC and aux + s * n.
-struct Split {
-  int begin, end;
-  __device__ Split(const Args& a) {
-    const int per = (a.m_eff + gridDim.y - 1) / gridDim.y;
-    begin = blockIdx.y * per;
-    end = min(a.m_eff, begin + per);
-  }
-};
-
-// Per-row accumulation state, in registers.
-template <int NC, bool FLASH>
-struct RowState {
-  float acc[NC];
-  float den = 0.f;      // direct: row sum of kernel values
-  float m = kNegInf;    // flash: running base-2 max
-  float l = 0.f;        // flash: normaliser
-
-  __device__ RowState() {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-  }
-
-  // g: the signed, scaled form of one valid pair; bj: its signal row.
-  template <int K>
-  __device__ __forceinline__ void add(float g, const float* bj, int rnd) {
-    using Map = KernelMap<K>;
-    float w;
-    if constexpr (FLASH) {
-      const float s = Map::logit(g);
-      if (s > m) {  // new running max: rescale what was summed so far
-        const float alpha = exp2f(m - s);
-        l *= alpha;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c] *= alpha;
-        m = s;
-      }
-      w = exp2f(s - m);
-      l += w;
-    } else {
-      w = Map::value(g);
-      den += w;
-    }
-    if (rnd) w = round_bf16(w);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = fmaf(w, bj[c], acc[c]);
-  }
-
-  // Merge the partial states of `lanes` neighbouring lanes (a power of 2).
-  __device__ __forceinline__ void merge_lanes(int lanes) {
-    for (int off = 1; off < lanes; off <<= 1) {
-      if constexpr (FLASH) {
-        const float mo = __shfl_xor_sync(kFullMask, m, off);
-        const float lo = __shfl_xor_sync(kFullMask, l, off);
-        const float mn = fmaxf(m, mo);
-        const float a = exp2f(m - mn), ao = exp2f(mo - mn);
-        l = l * a + lo * ao;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float o = __shfl_xor_sync(kFullMask, acc[c], off);
-          acc[c] = acc[c] * a + o * ao;
-        }
-        m = mn;
-      } else {
-        den += __shfl_xor_sync(kFullMask, den, off);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c] += __shfl_xor_sync(kFullMask, acc[c], off);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(const Args& a, int i) const {
-    const size_t row = (size_t)blockIdx.y * a.n + i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) a.out[row * NC + c] = acc[c];
-    if constexpr (FLASH) {
-      a.aux0[row] = m;
-      a.aux1[row] = l;
-    } else if (a.aux0 != nullptr) {
-      a.aux0[row] = den;
-    }
-  }
-};
-
-// ---- small D: two target rows per thread -------------------------------
-
-constexpr int kSmallThreads = 128;                        // threads per block
-constexpr int kRowsPerThread = 2;
-constexpr int kSmallRows = kSmallThreads * kRowsPerThread;  // rows per block
-constexpr int kSmallTile = 128;  // source points staged per tile
-
-template <int K, int DP, int NC, bool FLASH>
-__global__ void __launch_bounds__(kSmallThreads) small_d_kernel(const Args a) {
-  using Map = KernelMap<K>;
-  __shared__ float ys[kSmallTile][DP];
-  __shared__ float bs[kSmallTile][NC];
-
-  const Split split(a);
-  float xr[kRowsPerThread][DP];
-  bool row_ok[kRowsPerThread];
-  int skip[kRowsPerThread];  // local column on the global diagonal, or -1
-  RowState<NC, FLASH> st[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int i = blockIdx.x * kSmallRows + r * kSmallThreads + threadIdx.x;
-#pragma unroll
-    for (int k = 0; k < DP; ++k) xr[r][k] = i < a.n ? a.x[(size_t)i * DP + k] : 0.f;
-    row_ok[r] = i < a.n_ok;  // rows past n_ok are masked whole
-    skip[r] = diagonal_column(a, i);
-  }
-
-  for (int j0 = split.begin; j0 < split.end; j0 += kSmallTile) {
-    __syncthreads();  // the previous tile is consumed
-    const int jl = j0 + threadIdx.x;
-    const bool in = jl < split.end;
-#pragma unroll
-    for (int k = 0; k < DP; ++k) ys[threadIdx.x][k] = in ? a.y[(size_t)jl * DP + k] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) bs[threadIdx.x][c] = in ? a.b[(size_t)jl * NC + c] : 0.f;
-    __syncthreads();
-
-    const int jn = min(kSmallTile, split.end - j0);
-    for (int jj = 0; jj < jn; ++jj) {
-      float yv[DP];
-#pragma unroll
-      for (int k = 0; k < DP; ++k) yv[k] = ys[jj][k];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        float g = 0.f;
-#pragma unroll
-        for (int k = 0; k < DP; ++k) {
-          if constexpr (Map::kDot) {
-            g = fmaf(xr[r][k], yv[k], g);
-          } else {
-            const float t = xr[r][k] - yv[k];
-            g = fmaf(Map::kNegate ? -t : t, t, g);
-          }
-        }
-        if (row_ok[r] && j0 + jj != skip[r]) st[r].template add<K>(g, bs[jj], a.rnd);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int i = blockIdx.x * kSmallRows + r * kSmallThreads + threadIdx.x;
-    if (i < a.n) st[r].store(a, i);
-  }
+int launch(const Shape& s, const Args& a, int splits, cudaStream_t stream) {
+  if (a.n <= 0) return cudaSuccess;
+  Launch l;
+  cudaError_t err = select(s, &l);
+  if (err != cudaSuccess) return err;
+  const long long row_blocks = (a.n + l.rows - 1) / l.rows;
+  if (splits < 1 || row_blocks > 65535) return cudaErrorInvalidValue;
+  Args args = a;
+  args.words = s.d;
+  void* params[] = {&args};
+  err = cudaLaunchKernel(l.fn, dim3(splits, (unsigned)row_blocks), dim3(l.threads), params,
+                         l.smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// ---- large D: register-blocked form tile, then four threads per row ------
-
-constexpr int kBN = 64;   // target rows per block
-constexpr int kBM = 64;   // source points per tile
-constexpr int kDK = 16;   // coordinates per staged chunk
-constexpr int kLargeThreads = 256;
-constexpr int kColsPerThread = kBM / 4;
-
-template <int K, int NC, bool FLASH>
-__global__ void __launch_bounds__(kLargeThreads) large_d_kernel(const Args a) {
-  using Map = KernelMap<K>;
-  __shared__ __align__(16) float xs[kDK][kBN + 4];  // chunk of x, transposed
-  __shared__ __align__(16) float ys[kDK][kBM + 4];  // chunk of y, transposed
-  __shared__ float form[kBN][kBM + 1];
-  __shared__ float bs[kBM][NC];
-  __shared__ float xsq_s[kBN];
-  __shared__ float ysq_s[kBM];
-
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * kBN;
-  if (t < kBN) xsq_s[t] = (!Map::kDot && row0 + t < a.n) ? a.xsq[row0 + t] : 0.f;
-
-  // Form layout: a 4 x 4 micro-tile of rows ty*4.. and columns tx*4.. .
-  const int ty = t / 16, tx = t % 16;
-  // Map layout: row pr of the block, columns pq*16 .. pq*16+15 of each tile.
-  const int pr = t / 4, pq = t % 4;
-  const int i = row0 + pr;
-  const Split split(a);
-  const int limit = i < a.n_ok ? split.end : 0;  // rows past n_ok: nothing
-  const int skip = diagonal_column(a, i);
-
-  RowState<NC, FLASH> st;
-  for (int j0 = split.begin; j0 < split.end; j0 += kBM) {
-    float dot[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dot[r][q] = 0.f;
-
-    for (int k0 = 0; k0 < a.d; k0 += kDK) {
-      __syncthreads();  // previous chunk (and previous tile's map pass) done
-      for (int idx = t; idx < kBN * kDK; idx += kLargeThreads) {
-        const int r = idx / kDK, k = idx % kDK;
-        const bool kin = k0 + k < a.d;
-        xs[k][r] = (kin && row0 + r < a.n) ? a.x[(size_t)(row0 + r) * a.d + k0 + k] : 0.f;
-        ys[k][r] = (kin && j0 + r < split.end) ? a.y[(size_t)(j0 + r) * a.d + k0 + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kDK; ++k) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[k][ty * 4]);
-        const float4 yv = *reinterpret_cast<const float4*>(&ys[k][tx * 4]);
-        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float ya[4] = {yv.x, yv.y, yv.z, yv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) dot[r][q] = fmaf(xa[r], ya[q], dot[r][q]);
-      }
-    }
-
-    // The chunk loop's barrier has retired every read of bs and ysq_s.
-    if (t < kBM) {
-      const int j = j0 + t;
-      const bool in = j < split.end;
-      ysq_s[t] = (!Map::kDot && in) ? a.ysq[j] : 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) bs[t][c] = in ? a.b[(size_t)j * NC + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int rr = ty * 4 + r, cc = tx * 4 + q;
-        float g = dot[r][q];
-        if constexpr (!Map::kDot) {
-          g = Map::kNegate ? 2.f * g - xsq_s[rr] - ysq_s[cc] : xsq_s[rr] + ysq_s[cc] - 2.f * g;
-        }
-        form[rr][cc] = g;
-      }
-    __syncthreads();
-
-    const int jn = min(kBM, limit - j0);
-#pragma unroll 4
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int cc = pq * kColsPerThread + c;
-      if (cc >= jn || j0 + cc == skip) continue;
-      st.template add<K>(form[pr][cc], bs[cc], a.rnd);
-    }
-  }
-  st.merge_lanes(4);
-  if (pq == 0 && i < a.n) st.store(a, i);
-}
-
-// ---- host dispatch ---------------------------------------------------------
-
-int rows_per_block(int d) { return d <= 8 ? kSmallRows : kBN; }
-
-template <int K, int NC, bool FLASH>
-cudaError_t launch_shape(const Args& a, int splits, cudaStream_t stream) {
-  const dim3 grid((a.n + rows_per_block(a.d) - 1) / rows_per_block(a.d), splits);
-  if (a.d == 3) {
-    small_d_kernel<K, 3, NC, FLASH><<<grid, kSmallThreads, 0, stream>>>(a);
-  } else if (a.d == 8) {
-    small_d_kernel<K, 8, NC, FLASH><<<grid, kSmallThreads, 0, stream>>>(a);
-  } else if (a.d > 8) {
-    large_d_kernel<K, NC, FLASH><<<grid, kLargeThreads, 0, stream>>>(a);
-  } else {
-    return cudaErrorInvalidValue;  // the wrapper pads small D to 3 or 8
-  }
-  return cudaGetLastError();
-}
-
-template <int K, bool FLASH>
-cudaError_t launch_nc(const Args& a, int nc, int splits, cudaStream_t stream) {
-  if (splits < 1 || splits > 65535) return cudaErrorInvalidValue;
-  switch (nc) {
-    case 1: return launch_shape<K, 1, FLASH>(a, splits, stream);
-    case 2: return launch_shape<K, 2, FLASH>(a, splits, stream);
-    case 4: return launch_shape<K, 4, FLASH>(a, splits, stream);
-    case 8: return launch_shape<K, 8, FLASH>(a, splits, stream);
-    default: return cudaErrorInvalidValue;  // the wrapper pads to 1, 2, 4 or 8
-  }
-}
-
-Args make_args(const float* x, const float* y, const float* b, const float* xsq,
-               const float* ysq, float* out, float* aux0, float* aux1, int n,
-               int n_ok, int m_eff, int d, int diag, int shift, int rnd) {
+Args make_args(const void* x, const void* y, const float* b, const float* xsq,
+               const float* ysq, float* out, float* aux0, float* aux1, int n, int n_ok,
+               int m_eff, int diag, int shift) {
   Args a;
   a.x = x; a.y = y; a.b = b; a.xsq = xsq; a.ysq = ysq;
   a.out = out; a.aux0 = aux0; a.aux1 = aux1;
-  a.n = n; a.n_ok = n_ok; a.m_eff = m_eff; a.d = d; a.diag = diag; a.shift = shift;
-  a.rnd = rnd;
+  a.n = n; a.n_ok = n_ok; a.m_eff = m_eff; a.words = 0; a.diag = diag; a.shift = shift;
   return a;
 }
 
 }  // namespace
+}  // namespace kmb
 
 extern "C" {
 
-// Target rows per block for points of dimension d (after padding), so the
-// wrapper can choose the number of column splits.
-int kmb_rows_per_block(int d) { return rows_per_block(d); }
-
-// Both return a cudaError_t: 0 when the launch was accepted (or n == 0).
-// out / acc is (splits, n, nc); den (may be null), mx and l are (splits, n).
-int kmb_direct_matvec(const float* x, const float* y, const float* b, const float* xsq,
-                      const float* ysq, float* out, float* den, int n, int n_ok,
-                      int m_eff, int d, int nc, int kernel, int diag, int shift,
-                      int splits, int round_bf16, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  const Args a = make_args(x, y, b, xsq, ysq, out, den, nullptr, n, n_ok, m_eff, d,
-                           diag, shift, round_bf16);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kernel) {
-    case kGaussian: return launch_nc<kGaussian, false>(a, nc, splits, s);
-    case kAbsExp: return launch_nc<kAbsExp, false>(a, nc, splits, s);
-    case kInverseDistance: return launch_nc<kInverseDistance, false>(a, nc, splits, s);
-    case kExponential: return launch_nc<kExponential, false>(a, nc, splits, s);
-    default: return cudaErrorInvalidValue;
-  }
+// The launch plan for a shape: target rows per block, and how many blocks
+// of it one SM holds at once, so the wrapper can choose the column splits.
+// Returns a cudaError_t.
+int kmb_plan(int d, int nc, int kernel, int flash, int den, int bf16, int* rows,
+             int* blocks_per_sm) {
+  kmb::Launch l;
+  const kmb::Shape s = kmb::make_shape(d, nc, kernel, flash, den, bf16);
+  cudaError_t err = kmb::select(s, &l);
+  if (err != cudaSuccess) return err;
+  *rows = l.rows;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, l.fn, l.threads, l.smem);
 }
 
-int kmb_flash_matvec(const float* x, const float* y, const float* b, const float* xsq,
+// Both return a cudaError_t: 0 when the launch was accepted (or n == 0).
+// x, y: the staged points (f32; bf16 at large D in the bfloat16 tier); d is
+// their padded width.  out / acc is (splits, n, nc); den (may be null), mx and l
+// are (splits, n).
+int kmb_direct_matvec(const void* x, const void* y, const float* b, const float* xsq,
+                      const float* ysq, float* out, float* den, int n, int n_ok, int m_eff,
+                      int d, int nc, int kernel, int diag, int shift, int splits, int bf16,
+                      void* stream) {
+  const kmb::Args a =
+      kmb::make_args(x, y, b, xsq, ysq, out, den, nullptr, n, n_ok, m_eff, diag, shift);
+  return kmb::launch(kmb::make_shape(d, nc, kernel, false, den != nullptr, bf16), a, splits,
+                     static_cast<cudaStream_t>(stream));
+}
+
+int kmb_flash_matvec(const void* x, const void* y, const float* b, const float* xsq,
                      const float* ysq, float* acc, float* mx, float* l, int n, int n_ok,
-                     int m_eff, int d, int nc, int kernel, int diag, int shift,
-                     int splits, int round_bf16, void* stream) {
-  if (n <= 0) return cudaSuccess;
-  const Args a = make_args(x, y, b, xsq, ysq, acc, mx, l, n, n_ok, m_eff, d, diag,
-                           shift, round_bf16);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kernel) {  // only kernels with a log form run the flash scheme
-    case kGaussian: return launch_nc<kGaussian, true>(a, nc, splits, s);
-    case kAbsExp: return launch_nc<kAbsExp, true>(a, nc, splits, s);
-    case kExponential: return launch_nc<kExponential, true>(a, nc, splits, s);
-    default: return cudaErrorInvalidValue;
-  }
+                     int m_eff, int d, int nc, int kernel, int diag, int shift, int splits,
+                     int bf16, void* stream) {
+  const kmb::Args a =
+      kmb::make_args(x, y, b, xsq, ysq, acc, mx, l, n, n_ok, m_eff, diag, shift);
+  return kmb::launch(kmb::make_shape(d, nc, kernel, true, false, bf16), a, splits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 const char* kmb_error_string(int code) {

@@ -20,7 +20,7 @@ engine fast path of the streaming product:
 
 Scaling both point sets by sqrt(log2 e) scales squared distances and dot
 products by log2 e, so the per-pair transcendental of exp-family kernels
-is a bare exp2.  The CUDA kernels in `csrc/product.cu` hard-code the same
+is a bare exp2.  The CUDA kernels (`csrc/common.cuh`) hard-code the same
 maps per kernel; the tests hold these against the JAX zoo.
 """
 

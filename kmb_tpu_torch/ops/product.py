@@ -6,8 +6,8 @@ The twin of kmb_tpu.ops.product.  Three functions:
   `kernel_matvec_xla`.  It streams `block_n` target rows at a time, works in
   any float dtype (float64 serves as the ground truth) and on any device.
 - `kernel_matvec_cuda`: the same contract on the two hand-written CUDA
-  kernels of `csrc/product.cu` (the direct kernel and the base-2 flash
-  kernel).  CUDA float32 tensors only.
+  kernels of `csrc/` (the direct kernel and the base-2 flash kernel,
+  entry points in `csrc/product.cu`).  CUDA float32 tensors only.
 - `kernel_matvec`: the dispatch.  CUDA tensors go to the kernels, CPU
   tensors to the plain version; nothing falls back from one to the other.
 
@@ -26,9 +26,10 @@ The contract (kmb_tpu/ops/product.py:663-810):
 - `deferred`: return the raw combination state, (num, den | None) for the
   direct scheme (den only when something reads row sums) or (acc, m, l) for
   flash, with m a base-2 logit.
-- `precision`: "float32"; "float32x3", which is full f32 here (so "at least
-  f32x3 accurate"); "bfloat16", where the points, the signal and each kernel
-  value are rounded to bf16 before the product, with f32 accumulation.
+- `precision`: "float32" and "float32x3", f32-accurate (the kernel forms
+  large-D dot products in 3xTF32 on the tensor cores, see `tf32_split`);
+  "bfloat16", where the points, the signal and each kernel value are
+  rounded to bf16 before the product, with f32 accumulation.
 """
 
 from __future__ import annotations
@@ -46,11 +47,11 @@ FLASH_NEG_INF = -1e30
 PRECISIONS = ("float32", "float32x3", "bfloat16")
 INT32_MAX = 2**31 - 1
 
-# Kernel ids of csrc/product.cu (enum KernelId).
+# Kernel ids of csrc/common.cuh (enum KernelId).
 _CUDA_KERNEL_ID = {"gaussian": 0, "absolute-exponential": 1,
                    "inverse-distance": 2, "exponential": 3}
 _SIGNAL_CHUNK = 8  # signal columns per launch (the kernels take 1, 2, 4, 8)
-_BLOCKS_PER_SM = 4  # column splits aim the grid at this many blocks per SM
+_MIN_FILL = 0.9  # column splits fill at least this share of every wave
 _MIN_SPLIT_COLUMNS = 512  # ... but give no split fewer source columns
 
 
@@ -207,6 +208,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def tf32_split(t):
+    """Split float32 `t` into TF32 parts hi = tf32(t), lo = tf32(t - hi).
+
+    The plain version of the split that the large-D kernel does in
+    registers for the float32 tiers: it forms <x, y> as
+    lo.hi + hi.lo + hi.hi on the tensor cores (3xTF32), each product of
+    TF32 parts exact in f32, and hi + lo equals t to within 2^-22
+    relative.  TF32 rounding keeps 10 mantissa bits, ties away from zero
+    (an add and a mask on the bits, as the kernel does it).  Inf stays
+    inf with lo = 0; NaN stays NaN; a finite value past TF32's largest
+    finite value rounds to inf (with lo = 0).
+    """
+    t = t.float().contiguous()
+
+    def rounded(v):
+        bits = torch.bitwise_and(v.view(torch.int32) + 0x1000, ~0x1FFF)
+        return torch.where(torch.isnan(v), v, bits.view(torch.float32))
+
+    hi = rounded(t)
+    lo = torch.where(torch.isfinite(hi), t - hi, torch.zeros_like(t))
+    return hi, rounded(lo)
+
+
 def merge_direct_states(num, den):
     """Merge direct states of column splits: (S, N, E) and (S, N, 1) | None."""
     return num.sum(0), None if den is None else den.sum(0)
@@ -228,30 +252,72 @@ def _sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _splits(device, n, dp, m_eff):
-    """Column splits so the grid gives about 4 blocks per SM."""
-    rows = _build.load_library().kmb_rows_per_block(dp)
-    blocks = -(-n // rows)
-    want = -(-_BLOCKS_PER_SM * _sm_count(device.index) // blocks)
-    return max(1, min(want, m_eff // _MIN_SPLIT_COLUMNS, 65535))
+@functools.lru_cache(maxsize=None)
+def _plan(device_index, *shape):
+    with torch.cuda.device(device_index):
+        return _build.plan(*shape)
 
 
-def _launch(kernel, x, y, b, xsq, ysq, outs, *, n_ok, m_eff, kernel_id,
-            diag, shift, splits, rnd):
+def choose_splits(blocks, slots, m_eff):
+    """Column splits for a grid of `blocks` row blocks on `slots` resident
+    blocks (blocks per SM times SMs): the fewest splits whose launch fills
+    at least 90% of the slots of every wave it takes, or failing that the
+    best filled, and no split of fewer than 512 source columns."""
+    cap = max(1, min(m_eff // _MIN_SPLIT_COLUMNS, 4096))
+
+    def filled(s):
+        total = blocks * s
+        return total / (-(-total // slots) * slots)
+
+    for s in range(1, cap + 1):
+        if filled(s) >= _MIN_FILL:
+            return s
+    return max(range(1, cap + 1), key=lambda s: (filled(s), -s))
+
+
+def _stage_points(t, scale, *, large, bf16):
+    """Scale (and, at bfloat16, round) points for the kernels; pad D.
+
+    Returns (points, norms).  Small D pads to 3 or 8 coordinates.  Large D
+    pads rows to whole 16 bytes (4 f32 or 8 bf16 values), passes bf16
+    points in the bfloat16 tier, and computes the float32 norms |t|^2 once,
+    from the staged values.  Zero coordinates change no form.
+    """
+    t = t.float() * scale
+    if bf16:
+        t = t.to(torch.bfloat16)
+    d = t.shape[1]
+    if not large:
+        return F.pad(t.float(), (0, (3 if d <= 3 else 8) - d)).contiguous(), None
+    pad = -d % (8 if bf16 else 4)
+    if pad:
+        t = F.pad(t, (0, pad))
+    tf = t.float()
+    return t.contiguous(), torch.sum(tf * tf, dim=1)
+
+
+def _launch(kernel, points, b, outs, *, n_ok, m_eff, kernel_id, diag,
+            shift, splits, bf16):
     """Check the staged operands and launch one kernel on them."""
-    for name, t in (("x", x), ("y", y), ("b", b), ("xsq", xsq),
-                    ("ysq", ysq), *(("out", o) for o in outs)):
+    (x, xsq), (y, ysq) = points
+    point_dtype = torch.bfloat16 if bf16 and x.shape[1] > 8 else torch.float32
+    for name, t, dtype in (("x", x, point_dtype), ("y", y, point_dtype),
+                           ("b", b, torch.float32),
+                           ("xsq", xsq, torch.float32),
+                           ("ysq", ysq, torch.float32),
+                           *(("out", o, torch.float32) for o in outs)):
         if t is not None and not (t.is_cuda and t.is_contiguous()
-                                  and t.dtype == torch.float32):
+                                  and t.dtype == dtype):
             raise ValueError(
-                f"staged operand {name} must be a contiguous float32 CUDA "
+                f"staged operand {name} must be a contiguous {dtype} CUDA "
                 "tensor")
     n, d = x.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    kernel(_ptr(x), _ptr(y), _ptr(b), _ptr(xsq), _ptr(ysq),
-           *(_ptr(o) for o in outs),
-           n, n_ok, m_eff, d, b.shape[1], kernel_id, int(diag), shift,
-           splits, int(rnd), stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        kernel(_ptr(x), _ptr(y), _ptr(b), _ptr(xsq), _ptr(ysq),
+               *(_ptr(o) for o in outs),
+               n, n_ok, m_eff, d, b.shape[1], kernel_id, int(diag), shift,
+               splits, int(bf16), stream)
 
 
 def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
@@ -266,10 +332,10 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
 
     x (N, D), y (M, D) and b (M, E) or None are float32 tensors on one CUDA
     device.  The wrapper scales (and, at bfloat16, rounds) the points,
-    computes the norms of the large-D form, folds the limits into counts,
-    pads small D and the signal width to what the kernels take, and merges
-    the partial states of column splits.  Signals wider than 8 columns run
-    as several launches of 8.
+    pads D, computes the norms of the large-D form, folds the limits into
+    counts, pads the signal width to what the kernels take, and merges the
+    partial states of column splits.
+    Signals wider than 8 columns run as several launches of 8.
     """
     spec = get_kernel(kernel_name)
     _check_precision(precision)
@@ -296,33 +362,24 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     needs_den = _needs_den(spec, normalize_rows, density_estimation,
                            b_was_none)
     bf16 = precision == "bfloat16"
+    large = d > 8
 
-    def stage(t):
-        t = t.float()
-        return t.to(torch.bfloat16).float() if bf16 else t
-
-    xs = stage(x * spec.point_scale)
-    ys = stage(y * spec.point_scale)
-    bs = stage(b)
-    xsq = ysq = None
-    dp = d
-    if d <= 8:
-        dp = 3 if d <= 3 else 8   # zero coordinates change no form
-        xs = F.pad(xs, (0, dp - d))
-        ys = F.pad(ys, (0, dp - d))
-    elif spec.on == "sqdist":
-        xsq = torch.sum(xs * xs, dim=1)
-        ysq = torch.sum(ys * ys, dim=1)
-    xs, ys = xs.contiguous(), ys.contiguous()
+    stage = dict(large=large, bf16=bf16)
+    xp = _stage_points(x, spec.point_scale, **stage)
+    yp = _stage_points(y, spec.point_scale, **stage)
+    if spec.on == "dot":   # no norms in a dot-product form
+        xp, yp = (xp[0], None), (yp[0], None)
+    bs = b.float()
+    if bf16:
+        bs = bs.to(torch.bfloat16).float()
+    dp = xp[0].shape[1]   # padded coordinates
 
     row_offset = _as_int32("row_offset", row_offset)
     col_offset = _as_int32("col_offset", col_offset)
     n_ok = max(0, min(n, int(row_limit) - row_offset))
     m_eff = max(0, min(m, int(col_limit) - col_offset))
     shift = _as_int32("row_offset - col_offset", row_offset - col_offset)
-    splits = _splits(device, n, dp, m_eff) if n else 1
-    launch = dict(n_ok=n_ok, m_eff=m_eff, kernel_id=_CUDA_KERNEL_ID[spec.name],
-                  diag=md, shift=shift, splits=splits, rnd=bf16)
+    kernel_id = _CUDA_KERNEL_ID[spec.name]
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
@@ -333,20 +390,29 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
         width = chunk.shape[1]
         nc = 1 if width == 1 else 2 if width == 2 else 4 if width <= 4 else 8
         chunk = F.pad(chunk, (0, nc - width)).contiguous()
+        want_den = needs_den and c0 == 0 and not use_flash
+        splits = 1
+        if n:
+            rows, per_sm = _plan(device.index, dp, nc, kernel_id, use_flash,
+                                 want_den, bf16)
+            splits = choose_splits(-(-n // rows),
+                                   per_sm * _sm_count(device.index), m_eff)
+        launch = dict(n_ok=n_ok, m_eff=m_eff, kernel_id=kernel_id, diag=md,
+                      shift=shift, splits=splits, bf16=bf16)
         out = new(splits, n, nc)
         if use_flash:
             state = (new(splits, n, 1), new(splits, n, 1))
             if n:
-                _launch(_build.FLASH, xs, ys, chunk, xsq, ysq,
-                        (out, *state), **launch)
+                _launch(_build.FLASH, (xp, yp), chunk, (out, *state),
+                        **launch)
             out, *state = merge_flash_states(out, *state)
             if c0 == 0:   # m and l do not depend on the signal
                 mx, l = state
         else:
-            part = new(splits, n, 1) if (needs_den and c0 == 0) else None
+            part = new(splits, n, 1) if want_den else None
             if n:
-                _launch(_build.DIRECT, xs, ys, chunk, xsq, ysq,
-                        (out, part), **launch)
+                _launch(_build.DIRECT, (xp, yp), chunk, (out, part),
+                        **launch)
             out, part = merge_direct_states(out, part)
             if c0 == 0:
                 den = part

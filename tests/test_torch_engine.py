@@ -216,13 +216,19 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 # -- the nvcc + ctypes build, without nvcc -----------------------------------
 
 def test_nvcc_command_line():
-    cmd = _build.nvcc_command("nvcc", _build.SOURCE, _build.BUILD_DIR / "x.so")
+    # One compile per source (run together), then one link into the .so.
+    cmd = _build.nvcc_command("nvcc", _build.SOURCE, _build.BUILD_DIR / "x.o")
     assert cmd[0] == "nvcc"
     assert "arch=compute_90a,code=sm_90a" in cmd
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+    for flag in ("-std=c++17", "-O3", "-fPIC", "-c"):
         assert flag in cmd
+    assert cmd[cmd.index("-Xptxas") + 1] == "-v"
     assert cmd[-1] == str(_build.SOURCE)
     assert _build.SOURCE.name == "product.cu" and _build.SOURCE.exists()
+    assert all(src.exists() for src in (*_build.SOURCES, *_build.HEADERS))
+    link = _build.link_command("nvcc", ["a.o", "b.o"], _build.BUILD_DIR / "x.so")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
+    assert link[-2:] == ["a.o", "b.o"]
 
 
 def test_library_lands_in_the_ignored_build_directory():

@@ -17,7 +17,7 @@ from kmb_tpu.algorithms.bruteforce_numpy import kernel_matrix
 from kmb_tpu.ops.product import kernel_matvec_pallas, kernel_matvec_xla
 from kmb_tpu_torch.ops import _build
 from kmb_tpu_torch.ops.product import (
-    kernel_matvec, kernel_matvec_cuda, kernel_matvec_torch,
+    choose_splits, kernel_matvec, kernel_matvec_cuda, kernel_matvec_torch,
     merge_direct_states, merge_flash_states,
 )
 
@@ -270,3 +270,14 @@ def test_cuda_wrapper_refuses_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA"):
         kernel_matvec_cuda(torch.from_numpy(x), torch.from_numpy(y),
                            torch.from_numpy(b), kernel_name="gaussian")
+
+
+@pytest.mark.parametrize("blocks,slots,m_eff,want", [
+    (79, 132, 10000, 5),      # D > 8 at N = 10^4: 395 blocks in 3 full waves
+    (1, 132, 10**6, 119),     # one row block: split until 90% of the SMs work
+    (256, 1584, 131072, 6),   # D <= 8 at N = 2^17, 12 blocks per SM
+    (79, 132, 1000, 1),       # too few source columns to split
+    (79, 132, 1500, 1),       # no split fills 90%: the best filled, fewest
+])
+def test_column_splits_fill_the_card(blocks, slots, m_eff, want):
+    assert choose_splits(blocks, slots, m_eff) == want
