@@ -25,11 +25,21 @@ Phases, each of which must pass:
    attention call, and held against the plain version there too.  `ms` is
    the wrapper's call (staging, launches, merge) with CUDA events;
    `kernel_device_ms` is the kernel alone, from torch.profiler.
+5. The solver path, through the port's runner (runs=2): Nystrom PCG,
+   block-abs Jacobi MINRES and iterative refinement on the direct kernel,
+   and the dense solvers, on the registry's solver datasets at full size.
+   Each answer's float64 true residual ||K b - a|| / ||a|| is computed on
+   the card and held under its limit (a dense answer: its backward error
+   against the float64 matrix of the plain product); every iteration must
+   have launched the direct kernel, and the plain version may run only in
+   float64 (truth, residuals and that matrix).  The solver path's kernel
+   shapes (the Nystrom sketch at E = 256, the E = 1 matvec at M = 10^4)
+   are held against the plain version and timed.
 
 The last line is {"ok": true, "device": {...}} and is printed only when
 every phase passed; the line before it holds the kernels' numbers, one
-entry per kernel, dataset and tier.  Nothing
-is written outside the git-ignored kernel build directory.
+entry per kernel, dataset and tier, and the line before that the solver
+runs'.  Nothing is written outside the git-ignored kernel build directory.
 """
 
 from __future__ import annotations
@@ -56,8 +66,8 @@ LIBRARY_TOL = 1e-2       # the library's attention may run reduced precision
 
 # Main-path error bounds: RMS(result - truth) / RMS(truth) against the
 # float64 truth.  f32 tiers: f32 rounding of points and sums; bfloat16:
-# bf16 points, signal and kernel values (test_ops.py holds the JAX bf16
-# tier to 5e-2 max-relative).
+# bf16 signal and kernel values, bf16 points at D > 8 (test_ops.py holds
+# the JAX bf16 tier to 5e-2 max-relative).
 MAIN_PATH_BOUND = {"float32": 1e-4, "float32x3": 1e-4, "bfloat16": 5e-2}
 
 TIERS = ("float32", "float32x3", "bfloat16")
@@ -76,6 +86,71 @@ MAIN_PATH = (
     ("attention-normal-D64-E8-M10000-N10000-exponential", "flash",
      "online softmax"),
 )
+# The JAX package's bf16 tier on the same datasets: RMS(result - truth) /
+# RMS(truth) of its TPU records
+# results/product-{sphere,cube}-D3-E1-M131072-N131072-*/tpu-product/
+# *bfloat16.hdf5 (`result` and `error`), for comparison only.
+JAX_BF16_RECORD = {
+    "product-sphere-D3-E1-M131072-N131072-inverse-distance": 2.35e-3,
+    "product-cube-D3-E1-M131072-N131072-gaussian": 3.73e-3,
+}
+
+# Phase 5, the solver path: (label, dataset, constructor, constructor args,
+# query args, the JAX package's TPU record as (iterations, reported
+# residual) or None, limit on the float64 true residual ||K b - a|| / ||a||).
+# The TPU records are results/<dataset>/tpu-solver-cg/*.hdf5 of the same
+# configurations (iterations and residuals only, never times).  Limits,
+# fixed before the first timed run: 1e-5 for the Gaussian PCG (tol 1e-6
+# on the f32 recursive residual, 10x for its drift from the true one),
+# 1e-2 for the sphere MINRES (its TPU record runs to max_iters at 3.9e-3),
+# 1e-6 for the refinement (float64 outer residuals, TPU record 2.2e-7).
+# The dense runs (limit None here) are held to ten times the backward
+# error ||K b - a|| / (||K||_F ||b|| + ||a||) that
+# kmb_tpu.ops.solve.dense_solve reaches on the CPU on the same dataset,
+# with K the float64 kernel matrix of the float32 points formed by the
+# plain float64 product, independent of the matrix the solver factors
+# (`independent_backward_error`, here and in tests/test_torch_solve.py).
+# Their true residual is printed beside it: on the numerically singular
+# Gaussian cube it scales with ||b||, which the factorisation's roundings
+# set (XLA's CPU LU reaches about 6e-5 there, cuSOLVER's about 7e-4, at
+# backward errors of one order).
+CUBE_131072 = "solver-cube-D3-E1-M131072-N131072-gaussian"
+SPHERE_131072 = "solver-sphere-D3-E1-M131072-N131072-inverse-distance"
+CUBE_10000 = "solver-cube-D3-E1-M10000-N10000-gaussian"
+NORMAL_5000 = "solver-normal-D784-E1-M5000-N5000-gaussian"
+SOLVER_PATH = (
+    ("Nystrom PCG", CUBE_131072, "TorchSolverCG",
+     {"precision": "float32", "precond_rank": 256},
+     {"tol": 1e-6, "max_iters": 2000}, (141, 3.5e-6), 1e-5),
+    ("block-abs Jacobi MINRES", SPHERE_131072, "TorchSolverCG",
+     {"precision": "float32", "precond": "jacobi", "leaf": 512},
+     {"tol": 1e-5, "max_iters": 2000}, (2000, 3.9e-3), 1e-2),
+    ("Nystrom iterative refinement", CUBE_10000, "TorchSolverCG",
+     {"precision": "float32", "precond_rank": 256, "refine_iters": 4},
+     {"tol": 1e-9, "max_iters": 2000, "inner_tol": 1e-5}, (276, 2.2e-7),
+     1e-6),
+    ("dense LU", CUBE_10000, "TorchSolverDirect",
+     {"precision": "float32", "method": "lu"}, {}, None, None),
+    ("dense LU", CUBE_10000, "TorchSolverDirect",
+     {"precision": "bfloat16", "method": "lu"}, {}, None, None),
+    ("dense LU", NORMAL_5000, "TorchSolverDirect",
+     {"precision": "float32", "method": "lu"}, {}, None, None),
+    ("dense LU", NORMAL_5000, "TorchSolverDirect",
+     {"precision": "bfloat16", "method": "lu"}, {}, None, None),
+    ("dense eigh pseudo-inverse", NORMAL_5000, "TorchSolverDirect",
+     {"precision": "float32", "method": "svd"}, {}, None, None),
+)
+# The backward error kmb_tpu.ops.solve.dense_solve reaches on the CPU
+# (`KMB_PLATFORM=cpu PYTHONPATH=. python tests/test_torch_solve.py`, jax
+# and torch on a CPU host): (dataset, method, precision) -> backward error.
+DENSE_JAX_CPU_BACKWARD_ERROR = {
+    (CUBE_10000, "lu", "float32"): 2.067883e-09,
+    (CUBE_10000, "lu", "bfloat16"): 9.686364e-06,
+    (NORMAL_5000, "lu", "float32"): 8.089086e-09,
+    (NORMAL_5000, "lu", "bfloat16"): 2.562492e-06,
+    (NORMAL_5000, "svd", "float32"): 3.009504e-07,
+}
+
 REPLACES = {
     "direct": "kmb_tpu/ops/product.py:230 (_direct_kernel_body, "
               "pallas_call at :638)",
@@ -368,6 +443,9 @@ def main():
                   f"{MAIN_PATH_BOUND[tier]}")
             qt = row.attrs["query_time"]
             per_run[name, tier] = launched[symbol]
+            if tier == "bfloat16" and name in JAX_BF16_RECORD:
+                print(f"{name} [bfloat16]: RMS rel error {rel:.3e}, JAX "
+                      f"TPU record {JAX_BF16_RECORD[name]:.2e}")
             print(f"{name} [{tier}, {which} kernel, {what}]: query "
                   f"{qt * 1e3:.3f} ms, {n * m / qt:.4e} pairs/s, RMS rel "
                   f"error {rel:.3e}, launches {launched} [{card}]")
@@ -465,14 +543,212 @@ def main():
         del x, y, b
         torch.cuda.empty_cache()
 
+    solvers = solver_path(dev, card, sfu_rate, entries, time_ms)
+
     check({entry["name"] for entry in entries} == {"direct", "flash"},
           "a kernel was not timed")
+    print(json.dumps({"solvers": solvers}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def solver_path(dev, card, sfu_rate, entries, time_ms):
+    """Phase 5: the solver path on the card (see the module docstring).
+
+    Appends the solver path's kernel shapes to `entries` and returns one
+    record per run of SOLVER_PATH."""
+    from kmb_tpu_torch.algorithms import torch_engine
+    from kmb_tpu_torch.datasets import ground_truth, make_arrays
+    from kmb_tpu_torch.definitions import Definition
+    from kmb_tpu_torch.ops import _build, product, solve
+    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    datasets = {}
+    for name in dict.fromkeys(entry[1] for entry in SOLVER_PATH):
+        arrays = make_arrays(name)
+        t0 = time.perf_counter()
+        arrays["target_signal"] = ground_truth(arrays, device="cuda")
+        torch.cuda.synchronize()
+        print(f"{name}: float64 truth on the card in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        datasets[name] = arrays
+
+    def true_residual(arrays, b):
+        """||K b - a|| / ||a|| in float64 on the card, from the float64
+        points: independent of the solver's own report."""
+        y64 = torch.tensor(arrays["source_points"], device=dev)
+        a64 = torch.tensor(arrays["target_signal"], device=dev)
+        kb = kernel_matvec_torch(y64, y64, torch.tensor(b, device=dev),
+                                 kernel_name=arrays["kernel"])
+        return float(torch.linalg.norm(kb - a64) / torch.linalg.norm(a64))
+
+    frobenius = {}
+
+    def independent_backward_error(arrays, b, block=1000):
+        """||K b - a|| / (||K||_F ||b|| + ||a||) in float64 on the card, K
+        the kernel matrix of the float32 points from the plain float64
+        product: not the matrix the dense solver factored."""
+        p = torch.tensor(arrays["source_points"], dtype=torch.float32,
+                         device=dev).double()
+        kernel = arrays["kernel"]
+        m = len(p)
+        if id(arrays) not in frobenius:
+            frob_sq = 0.0
+            for j in range(0, m, block):   # columns j:j+w of K
+                w = min(block, m - j)
+                eye = torch.eye(w, dtype=torch.float64, device=dev)
+                frob_sq += float(torch.sum(kernel_matvec_torch(
+                    p, p[j:j + w], eye, kernel_name=kernel,
+                    col_offset=j) ** 2))
+            frobenius[id(arrays)] = frob_sq ** 0.5
+        b64 = torch.tensor(b, device=dev)
+        a64 = torch.tensor(arrays["target_signal"], device=dev)
+        kb = kernel_matvec_torch(p, p, b64, kernel_name=kernel)
+        return float(torch.linalg.norm(kb - a64) / (
+            frobenius[id(arrays)] * torch.linalg.norm(b64)
+            + torch.linalg.norm(a64)))
+
+    # Launches of the direct kernel inside each fit and query, and every
+    # call of the plain version during the solves with its dtype.
+    phase_launches = {"fit": 0, "query": 0}
+    plain_dtypes = []
+    real_plain = kernel_matvec_torch
+
+    def spy_plain(x, *args, **kwargs):
+        plain_dtypes.append(x.dtype)
+        return real_plain(x, *args, **kwargs)
+
+    def counted(method, key):
+        def wrapper(self, *args, **kwargs):
+            before = _build.DIRECT.launches
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                phase_launches[key] += _build.DIRECT.launches - before
+        return wrapper
+
+    classes = (torch_engine.TorchSolverCG, torch_engine.TorchSolverDirect)
+    saved = [(cls, name, getattr(cls, name)) for cls in classes
+             for name in ("fit", "query")]
+    records = []
+    _build.reset_launch_counts()
+    for label, name, constructor, args, query, record, limit in SOLVER_PATH:
+        arrays = datasets[name]
+        definition = Definition(
+            algorithm=f"torch-{constructor}",
+            module="kmb_tpu_torch.algorithms.torch_engine",
+            constructor=constructor,
+            arguments={"kernel": arrays["kernel"],
+                       "dimension": arrays["source_points"].shape[1],
+                       **args},
+            query_argument_groups=[query])
+        phase_launches.update(fit=0, query=0)
+        plain_dtypes.clear()
+        for cls, method, fn in saved:
+            setattr(cls, method, counted(fn, method))
+        product.kernel_matvec_torch = spy_plain
+        solve.kernel_matvec_torch = spy_plain
+        try:
+            (row,) = run_on_arrays(definition, arrays, runs=2)
+        finally:
+            for cls, method, fn in saved:
+                setattr(cls, method, fn)
+            product.kernel_matvec_torch = real_plain
+            solve.kernel_matvec_torch = real_plain
+        check(torch.float32 not in plain_dtypes,
+              f"{label} on {name}: the plain version ran in float32")
+        check(np.all(np.isfinite(row.result))
+              and row.result.shape == arrays["source_signal"].shape,
+              f"{label} on {name}: result not finite or misshapen")
+        res = true_residual(arrays, row.result)
+        attrs = row.attrs
+        iterations = attrs.get("cg_iterations")
+        fit_per_run = phase_launches["fit"] // 2
+        query_per_run = phase_launches["query"] // 2
+        if iterations is not None:
+            check(query_per_run >= iterations,
+                  f"{label}: {query_per_run} direct-kernel launches for "
+                  f"{iterations} iterations in one query")
+        held, eta = "true residual", None
+        if limit is None:   # a dense run: its backward error is held
+            held = "backward error"
+            key = name, args["method"], args["precision"]
+            eta = independent_backward_error(arrays, row.result)
+            limit = 10 * DENSE_JAX_CPU_BACKWARD_ERROR[key]
+        measured = res if eta is None else eta
+        check(measured <= limit, f"{label} on {name} {args}: {held} "
+              f"{measured:.3e} > {limit:.3e}")
+        entry = dict(label=label, dataset=name, args=args, query=query,
+                     build_s=attrs["build_time"],
+                     query_s=attrs["query_time"], iterations=iterations,
+                     jax_tpu_record=record,
+                     reported_residual=attrs.get("cg_relative_residual"),
+                     ir_outer_iterations=attrs.get("ir_outer_iterations"),
+                     true_residual=res, backward_error=eta, held=held,
+                     limit=limit,
+                     fit_launches=fit_per_run, query_launches=query_per_run,
+                     plain_dtypes=sorted({str(t) for t in plain_dtypes}))
+        records.append(entry)
+        print(f"phase 5: {label} on {name} {args} {query}: build "
+              f"{attrs['build_time']:.4f} s, query {attrs['query_time']:.4f}"
+              f" s, iterations {iterations} (JAX TPU record {record}), "
+              f"reported residual {entry['reported_residual']}, float64 "
+              f"true residual {res:.3e}, backward error {eta}, "
+              f"{held} held to {limit:.3e}, direct "
+              f"launches per fit {fit_per_run}, per query {query_per_run} "
+              f"[{card}]")
+    launches = {k.symbol: k.launches for k in _build.KERNELS}
+    check(_build.DIRECT.launches > 0, "the solver path launched no kernel")
+    print(f"phase 5: solver path launches {launches}")
+
+    # The solver path's kernel shapes against the plain version, timed:
+    # the Nystrom sketch (E = 256) and the E = 1 matvec of each dataset.
+    def cuda(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for name, e in ((CUBE_131072, 256), (CUBE_131072, 1),
+                    (SPHERE_131072, 1), (CUBE_10000, 1)):
+        arrays = datasets[name]
+        y = cuda(arrays["source_points"])
+        b = torch.randn((len(y), e), generator=gen, device=dev)
+        kw = dict(kernel_name=arrays["kernel"])
+        before = _build.DIRECT.launches
+        got = kernel_matvec(y, y, b, **kw)
+        per_call = _build.DIRECT.launches - before
+        ref = kernel_matvec_torch(y, y, b, **kw)
+        err, rel = compare(got, ref)
+        check(rel <= KERNEL_TOL["float32"],
+              f"solver path {name} E={e}: kernel vs plain {rel:.3e}")
+        del got, ref
+        ms = time_ms(lambda: kernel_matvec(y, y, b, **kw), 3)
+        plain_ms = time_ms(lambda: kernel_matvec_torch(y, y, b, **kw), 1)
+        n, d = y.shape
+        bound, bound_by, engine = bound_ms(n, n, d, e, "direct", False,
+                                           "float32", sfu_rate)
+        what = "Nystrom sketch" if e > 1 else "Krylov matvec"
+        print(f"phase 5: direct kernel, {what} on {name} E={e} [float32]: "
+              f"{ms:.4f} ms in {per_call} launches, plain {plain_ms:.4f} ms,"
+              f" bound {bound:.4f} ms ({engine}), max_abs_err vs plain "
+              f"{err:.3e} [{card}]")
+        entries.append(dict(
+            name="direct", route="cuda", source=SOURCE,
+            replaces=REPLACES["direct"], launches=launches[
+                _build.DIRECT.symbol],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=None,
+            at=f"{name}, solver path, E={e}", precision="float32",
+            bound_engine=engine, kernel_device_ms=None,
+            launches_per_call=per_call))
+        del y, b
+        torch.cuda.empty_cache()
+    return records
 
 
 if __name__ == "__main__":

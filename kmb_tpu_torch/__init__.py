@@ -23,7 +23,11 @@ __version__ = "0.1.0"
 # The float32 tier must never silently run on TF32 tensor cores (about
 # three decimal digits): the squared-distance form cancels, and the
 # reference tiers are full f32.  Both switches are process-wide in torch.
-torch.backends.cuda.matmul.allow_tf32 = False
+# The matmul switch goes through set_float32_matmul_precision, the setter
+# that keeps torch's old and new precision flags in step (setting
+# `allow_tf32` alone after a caller's set_float32_matmul_precision("high")
+# leaves them at odds, and recent torch then refuses to read either).
+torch.set_float32_matmul_precision("highest")
 torch.backends.cudnn.allow_tf32 = False
 
 

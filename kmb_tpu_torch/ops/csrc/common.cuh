@@ -103,24 +103,50 @@ struct Split {
 // value (flash: each exp2 weight) to bf16 before its product with the
 // signal; row sums and the flash normaliser keep the f32 values, as
 // kmb_tpu's kernel_matvec_xla does.
+//
+// The direct scheme sums in two levels: the pairs of one tile into a
+// partial that starts at zero, and each tile's partial into the running
+// sum (end_tile).  One float32 chain over a split's 10^5 columns loses
+// about 45x more than the kernel values' own rounding (1.6e-6 against
+// 3.5e-8 relative at M = 131072, solver_accuracy.py), enough to stall a
+// Krylov solve; two levels of at most a few hundred terms each cost one
+// add per tile and row.
 template <int NC, bool FLASH, bool DEN, bool RND>
 struct RowState {
   float acc[NC];
   float den = 0.f;    // direct: row sum of kernel values
   float m = kNegInf;  // flash: running base-2 max
   float l = 0.f;      // flash: normaliser
+  float tile_acc[NC];     // direct: this tile's partial sums
+  float tile_den = 0.f;
 
   __device__ RowState() {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[c] = tile_acc[c] = 0.f;
   }
 
   // Direct scheme: add the kernel value w of one valid pair.
   __device__ __forceinline__ void add_value(float w, const float* bj) {
-    if constexpr (DEN) den += w;
+    if constexpr (DEN) tile_den += w;
     if constexpr (RND) w = round_bf16(w);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = fmaf(w, bj[c], acc[c]);
+    for (int c = 0; c < NC; ++c) tile_acc[c] = fmaf(w, bj[c], tile_acc[c]);
+  }
+
+  // Direct scheme: fold this tile's partial sums into the running sums.
+  // Called after every tile that add_value touched.
+  __device__ __forceinline__ void end_tile() {
+    if constexpr (!FLASH) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[c] += tile_acc[c];
+        tile_acc[c] = 0.f;
+      }
+      if constexpr (DEN) {
+        den += tile_den;
+        tile_den = 0.f;
+      }
+    }
   }
 
   // Flash scheme: move the running max to m_new >= m (one rescale).

@@ -434,6 +434,8 @@ struct LargeD {
         }
       }
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) st[h].end_tile();
   }
 };
 

@@ -42,9 +42,10 @@
 // Precision tiers: "float32" and "float32x3" run f32 arithmetic, with the
 // large-D form product in 3xTF32 (f32-accurate; the kernel splits each
 // staged f32 value into TF32 parts in registers).  "bfloat16": the wrapper
-// rounds the points and the signal to bf16; the kernel rounds each kernel
-// value (the flash kernel: each exp2 weight) to bf16 before its product with
-// the signal, and accumulates in f32.  Row sums and the flash normaliser use
+// rounds the signal to bf16, and the points only at D > 8 (the small-D loop
+// takes f32 points, as the Pallas kernel's VPU form does); the kernel rounds
+// each kernel value (the flash kernel: each exp2 weight) to bf16 before its
+// product with the signal, and accumulates in f32.  Row sums and the flash normaliser use
 // the unrounded f32 values, as kmb_tpu's kernel_matvec_xla does.
 
 #include "common.cuh"

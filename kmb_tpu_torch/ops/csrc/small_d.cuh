@@ -148,6 +148,8 @@ __global__ void __launch_bounds__(kThreads) small_d_kernel(const Args a) {
       const int jn = split.end - j0 < kTile ? split.end - j0 : kTile;
       for (int jj = 0; jj < jn; ++jj) S::template visit<true>(recs[jj], xr, st, j0 + jj, skip);
     }
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) st[r].end_tile();
   }
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {

@@ -28,8 +28,11 @@ The contract (kmb_tpu/ops/product.py:663-810):
   flash, with m a base-2 logit.
 - `precision`: "float32" and "float32x3", f32-accurate (the kernel forms
   large-D dot products in 3xTF32 on the tensor cores, see `tf32_split`);
-  "bfloat16", where the points, the signal and each kernel value are
-  rounded to bf16 before the product, with f32 accumulation.
+  "bfloat16", where the signal and each kernel value are rounded to bf16
+  before the product, with f32 accumulation.  The points are rounded to
+  bf16 only at D > 8, where the form runs on the tensor cores; at D <= 8
+  the form takes the f32 points, as the Pallas kernel's VPU form does
+  (kmb_tpu/ops/product.py:525-538).
 """
 
 from __future__ import annotations
@@ -116,8 +119,12 @@ def kernel_matvec_torch(x, y, b, *, kernel_name: str,
     def rounded(t):
         return t.to(torch.bfloat16).to(work) if bf16 else t
 
-    x = rounded(x.to(work) * spec.point_scale)
-    y = rounded(y.to(work) * spec.point_scale)
+    def points(t):
+        t = t.to(work) * spec.point_scale
+        return rounded(t) if d > 8 else t
+
+    x = points(x)
+    y = points(y)
     b = rounded(b.to(work))
     sign = spec.form_sign
     use_flash = normalize_rows and spec.scaled_log2_fn is not None
@@ -276,19 +283,21 @@ def choose_splits(blocks, slots, m_eff):
 
 
 def _stage_points(t, scale, *, large, bf16):
-    """Scale (and, at bfloat16, round) points for the kernels; pad D.
+    """Scale (and, at bfloat16 with large D, round) points; pad D.
 
-    Returns (points, norms).  Small D pads to 3 or 8 coordinates.  Large D
-    pads rows to whole 16 bytes (4 f32 or 8 bf16 values), passes bf16
-    points in the bfloat16 tier, and computes the float32 norms |t|^2 once,
-    from the staged values.  Zero coordinates change no form.
+    Returns (points, norms).  Small D keeps f32 points in every tier (only
+    the kernel values and the signal are rounded there) and pads to 3 or 8
+    coordinates.  Large D pads rows to whole 16 bytes (4 f32 or 8 bf16
+    values), passes bf16 points in the bfloat16 tier, and computes the
+    float32 norms |t|^2 once, from the staged values.  Zero coordinates
+    change no form.
     """
     t = t.float() * scale
-    if bf16:
-        t = t.to(torch.bfloat16)
     d = t.shape[1]
     if not large:
-        return F.pad(t.float(), (0, (3 if d <= 3 else 8) - d)).contiguous(), None
+        return F.pad(t, (0, (3 if d <= 3 else 8) - d)).contiguous(), None
+    if bf16:
+        t = t.to(torch.bfloat16)
     pad = -d % (8 if bf16 else 4)
     if pad:
         t = F.pad(t, (0, pad))
@@ -331,10 +340,10 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     """The product on the hand-written CUDA kernels (see module docstring).
 
     x (N, D), y (M, D) and b (M, E) or None are float32 tensors on one CUDA
-    device.  The wrapper scales (and, at bfloat16, rounds) the points,
-    pads D, computes the norms of the large-D form, folds the limits into
-    counts, pads the signal width to what the kernels take, and merges the
-    partial states of column splits.
+    device.  The wrapper scales (and, at bfloat16 with D > 8, rounds) the
+    points, pads D, computes the norms of the large-D form, folds the
+    limits into counts, pads the signal width to what the kernels take,
+    and merges the partial states of column splits.
     Signals wider than 8 columns run as several launches of 8.
     """
     spec = get_kernel(kernel_name)

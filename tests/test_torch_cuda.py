@@ -1,4 +1,5 @@
-"""Card-only tests of the CUDA kernels (marked `cuda`; skip without a card).
+"""Card-only tests of the CUDA kernels and the solvers on them (marked
+`cuda`; skip without a card).
 
 This file imports neither jax nor kmb_tpu, so it also runs on a machine
 with the card and no JAX, without the JAX-importing conftest:
@@ -10,6 +11,13 @@ inputs: 1e-4 of the largest output in the f32 tiers (different summation
 orders; the large-D form is 3xTF32), 2e-2 in the bfloat16 tier (the kernel
 rounds each flash weight against the running max, the plain version
 against the final max), 1e-3 for logits above 100 (tests/test_ops.py:82).
+The solvers on the kernel are held against the same solve on the plain
+version on the card: iteration counts within 5% (at least 2; the plain
+version's own spread over orderings on the ill-conditioned cases named at
+SOLVES), residuals within 2x or at the tolerance (the roundings of two
+float32 products set where a Krylov loop stops, as in
+tests/test_torch_solve.py).  The kernel's float32 sum over 131072 columns
+is held to within 2x of the plain version's error against float64.
 """
 
 import numpy as np
@@ -17,6 +25,7 @@ import pytest
 import torch
 
 from kmb_tpu_torch.ops import _build
+from kmb_tpu_torch.ops import solve
 from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
 
 ALL_KERNELS = ["gaussian", "absolute-exponential", "inverse-distance",
@@ -146,3 +155,223 @@ def test_float64_on_the_card_raises(cuda_points):
     x, y, b = (t.double() for t in cuda_points(8, 9, 3, 1))
     with pytest.raises(TypeError, match="float32"):
         kernel_matvec(x, y, b, kernel_name="gaussian")
+
+
+# -- the solvers on the direct kernel -----------------------------------------
+
+@pytest.fixture
+def solver_problem():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from kmb_tpu_torch.datasets import make_arrays
+
+    def make(name, kernel=None):
+        """(kernel, float32 points, float32 rhs = K b in float64) of a
+        registry dataset, on the card; `kernel` overrides its kernel."""
+        arrays = make_arrays(name)
+        kernel = kernel or arrays["kernel"]
+        y64 = torch.tensor(arrays["source_points"], device="cuda")
+        b64 = torch.tensor(arrays["source_signal"], device="cuda")
+        rhs = kernel_matvec_torch(y64, y64, b64, kernel_name=kernel)
+        return kernel, y64.float(), rhs.float()
+
+    return make
+
+
+def _plain_matvec(y, kernel):
+    def matvec(v):
+        return kernel_matvec_torch(y, y, v, kernel_name=kernel)
+    return matvec
+
+
+# (dataset, preconditioner, indefinite_method, tol, band of iteration
+# counts).  The band is how far the plain version's own count moves when
+# the same problem is given in another order (other float32 roundings):
+# its largest departure from the count in the registry's order, over
+# eight orderings (solver_accuracy.py part 3, on an H100): 116 of 284
+# for unpreconditioned CG on the Gaussian cube (condition beyond float32),
+# 264 of 489 for CG on the normal equations (condition squared); 5% where
+# that departure is smaller (at most 3.9%).
+SOLVES = [
+    ("solver-cube-D3-E1-M2000-N2000-gaussian", None, "auto", 1e-6, 0.41),
+    ("solver-cube-D3-E1-M2000-N2000-gaussian", "jacobi", "auto", 1e-6,
+     0.05),
+    ("solver-sphere-D3-E1-M2000-N2000-inverse-distance", None, "auto", 1e-5,
+     0.05),
+    ("solver-sphere-D3-E1-M2000-N2000-inverse-distance", "jacobi", "minres",
+     1e-5, 0.05),
+    ("solver-sphere-D3-E1-M2000-N2000-inverse-distance", None, "normal",
+     1e-6, 0.54),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, precond, method, tol, band", SOLVES)
+def test_krylov_on_the_kernel_matches_plain_version(name, precond, method,
+                                                    tol, band,
+                                                    solver_problem):
+    kernel, y, rhs = solver_problem(name)
+    pc = (solve.block_jacobi_preconditioner(y, kernel_name=kernel, leaf=512)
+          if precond == "jacobi" else None)
+    kw = dict(kernel_name=kernel, tol=tol, max_iters=2000, precond=pc,
+              indefinite_method=method)
+    before = _build.DIRECT.launches
+    b, it, res = solve.cg_solve(y, rhs, **kw)
+    launched = _build.DIRECT.launches - before
+    pb, pit, pres = solve.cg_solve(y, rhs,
+                                   matvec=_plain_matvec(y, kernel), **kw)
+    assert _build.DIRECT.launches - before == launched   # plain: none
+    per_iteration = 2 if method == "normal" else 1
+    assert launched >= per_iteration * it > 0
+    assert abs(it - pit) <= max(2, band * pit), (it, pit)
+    # Both converge alike: within 2x of the plain solve's residual, or to
+    # the tolerance.
+    assert res <= max(2.0 * pres, tol), (res, pres)
+    assert b.is_cuda and bool(torch.isfinite(b).all())
+
+
+@pytest.mark.cuda
+def test_normal_equations_match_plain_version_over_orderings(solver_problem):
+    # CG on K^2 stops either near 4e-6 after about 500 iterations or near
+    # 2e-5 after about 340, by the roundings: one ordering against one is
+    # a draw (the single-ordering case above), so the medians over eight
+    # orderings are compared, to the same band and factor.
+    name = "solver-sphere-D3-E1-M2000-N2000-inverse-distance"
+    kernel, y0, rhs0 = solver_problem(name)
+    kw = dict(kernel_name=kernel, tol=1e-6, max_iters=2000,
+              indefinite_method="normal")
+    runs = []
+    for seed in range(8):
+        perm = torch.randperm(len(y0), device="cuda", generator=(
+            torch.Generator(device="cuda").manual_seed(seed)))
+        y, rhs = y0[perm].contiguous(), rhs0[perm].contiguous()
+        _, it, res = solve.cg_solve(y, rhs, **kw)
+        _, pit, pres = solve.cg_solve(y, rhs,
+                                      matvec=_plain_matvec(y, kernel), **kw)
+        runs.append((it, res, pit, pres))
+    it, res, pit, pres = np.median(np.array(runs), axis=0)
+    assert abs(it - pit) <= 0.54 * pit, runs
+    assert res <= max(2.0 * pres, 1e-6), runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "solver-cube-D3-E1-M131072-N131072-gaussian",
+    "solver-sphere-D3-E1-M131072-N131072-inverse-distance"])
+def test_direct_sum_as_accurate_as_plain_version(name, solver_problem):
+    # A single float32 chain per row over a split's columns is off by
+    # 1.6e-6 on the cube, 6.7x the plain version's 2.4e-7
+    # (solver_accuracy.py): enough to stall the Krylov solves.  Rows
+    # 0:1024 of the whole product (so the kernel splits its columns as the
+    # solvers' calls do) against float64 from the same float32 inputs.
+    kernel, y, _ = solver_problem(name)
+    b = torch.randn((len(y), 1), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    rows = slice(0, 1024)
+    exact = kernel_matvec_torch(y[rows].double(), y.double(), b.double(),
+                                kernel_name=kernel)
+    err = [float(torch.linalg.norm(fn(y, y, b, kernel_name=kernel)[rows]
+                                   .double() - exact)
+                 / torch.linalg.norm(exact))
+           for fn in (kernel_matvec, kernel_matvec_torch)]
+    assert err[0] <= 2.0 * err[1], err
+
+
+@pytest.mark.cuda
+def test_nystrom_sketch_on_the_kernel_matches_plain_version(solver_problem):
+    kernel, y, _ = solver_problem("solver-cube-D3-E1-M2000-N2000-gaussian")
+    omega = torch.randn((2000, 256), generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    before = _build.DIRECT.launches
+    u, lam = solve.nystrom_factors(
+        solve._default_matvec(y, kernel_name=kernel, precision="float32"),
+        omega)
+    assert _build.DIRECT.launches - before == 256 // 8
+    pu, plam = solve.nystrom_factors(_plain_matvec(y, kernel), omega)
+    # The factors of two f32 sketches: U diag(lam) U^T within 1e-4 of
+    # lam_0 (tests/test_torch_solve.py's bound for two packages).
+    _close((u * lam) @ u.T, (pu * plam) @ pu.T)
+
+
+@pytest.mark.cuda
+def test_nystrom_gram_ignores_a_process_wide_tf32(solver_problem):
+    kernel, y, _ = solver_problem("solver-cube-D3-E1-M2000-N2000-gaussian")
+    omega = torch.randn((2000, 64), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    op = _plain_matvec(y, kernel)
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = solve.nystrom_factors(op, omega)
+        a = torch.randn((512, 512), device="cuda")
+        exact = a @ a
+        torch.set_float32_matmul_precision("high")
+        # The setting is live: a bare matmul now runs on TF32 ...
+        assert not torch.allclose(a @ a, exact, rtol=1e-5, atol=1e-5)
+        # ... and the solver's Gram and factors do not.
+        got = solve.nystrom_factors(op, omega)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * float(
+            w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lu", "cholesky", "svd"])
+def test_dense_solve_on_the_card_matches_the_cpu(method, solver_problem):
+    # Cholesky on an SPD system on which float32 Cholesky does not break.
+    kernel, y, rhs = (
+        solver_problem("solver-cube-D3-E1-M1000-N1000-gaussian",
+                       "absolute-exponential") if method == "cholesky" else
+        solver_problem("solver-sphere-D3-E1-M2000-N2000-inverse-distance"))
+    kw = dict(kernel_name=kernel, method=method)
+    got = solve.dense_solve(y, rhs, **kw)
+    want = solve.dense_solve(y.cpu(), rhs.cpu(), **kw)
+    res = [float(torch.linalg.norm(kernel_matvec_torch(
+        y.cpu().double(), y.cpu().double(), b.cpu().double(),
+        kernel_name=kernel) - rhs.cpu().double()) / torch.linalg.norm(
+            rhs.cpu().double())) for b in (got, want)]
+    # cuSOLVER and LAPACK factor the same f32 matrix: residuals within 10x
+    # of each other or at the f32 floor.
+    assert res[0] <= max(10 * res[1], 1e-5), res
+
+
+@pytest.mark.cuda
+def test_f64_residual_matvec_on_the_card(solver_problem):
+    kernel, y, rhs = solver_problem(
+        "solver-sphere-D3-E1-M1000-N1000-inverse-distance")
+    from kmb_tpu_torch.algorithms.bruteforce_numpy import (
+        blocked_kernel_product)
+
+    v = rhs.double()
+    got = solve.f64_residual_matvec(y, kernel_name=kernel)(v)
+    want = blocked_kernel_product(kernel=kernel,
+                                  source_points=y.double().cpu().numpy(),
+                                  source_signal=v.cpu().numpy())
+    assert got.is_cuda and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_solver_cg_lifecycle_on_the_card(solver_problem):
+    from kmb_tpu_torch.algorithms.torch_engine import TorchSolverCG
+
+    kernel, y, rhs = solver_problem("solver-cube-D3-E1-M2000-N2000-gaussian")
+    algo = TorchSolverCG(kernel=kernel, dimension=3, precond_rank=256,
+                         refine_iters=3)
+    assert algo.device.type == "cuda"
+    algo.prepare_data(source_points=y.cpu().numpy())
+    algo.fit()
+    algo.set_query_arguments(tol=1e-9, max_iters=2000, inner_tol=1e-5)
+    algo.prepare_query(target_signal=rhs.cpu().numpy())
+    before = _build.DIRECT.launches
+    algo.query()
+    extra = algo.get_additional()
+    assert _build.DIRECT.launches - before >= extra["cg_iterations"] > 0
+    assert extra["ir_outer_iterations"] >= 1
+    assert extra["device_name"] == torch.cuda.get_device_name()
+    assert algo.get_result().dtype == np.float64
+    algo.done()

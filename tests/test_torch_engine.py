@@ -194,8 +194,11 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
                           env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "kmb_tpu_torch.ops.product" in report["modules"]
-    assert "kmb_tpu_torch.__main__" in report["modules"]
+    for module in ("kmb_tpu_torch.ops.product", "kmb_tpu_torch.ops.solve",
+                   "kmb_tpu_torch.ops.blr",
+                   "kmb_tpu_torch.algorithms.torch_engine",
+                   "kmb_tpu_torch.__main__"):
+        assert module in report["modules"]
     loaded = report["loaded"]
     for banned in ("jax", "jaxlib", "kmb_tpu", "h5py", "yaml", "psutil"):
         hits = [m for m in loaded

@@ -210,20 +210,68 @@ def test_flash_stability_large_logits(rng):
 @pytest.mark.parametrize("kernel", ALL_KERNELS)
 @pytest.mark.parametrize("normalize", [False, True])
 def test_bfloat16_tier_matches_xla(kernel, normalize, rng):
-    # Both round points, signal and kernel values to bf16, but the two
-    # frameworks round at different places (XLA's bf16 matmul also rounds
-    # its output, torch accumulates and returns f32), so the tolerance is
-    # bf16's: 1e-2 of the largest output.
-    x, y, b = _points(rng, 33, 47, 3, 2)
-    kw = dict(kernel_name=kernel, normalize_rows=normalize,
-              precision="bfloat16")
-    got = _torch(x, y, b, **kw)
-    want = _jax(kernel_matvec_xla, x, y, b, block_n=8, **kw)
+    # The reference of the bf16 tier is the kernel the port replaces.  At
+    # D <= 8 that is the Pallas kernel's VPU form, which keeps f32 points
+    # and rounds the signal and each kernel value
+    # (kmb_tpu/ops/product.py:525-538); kernel_matvec_xla rounds the points
+    # too, and differs from Pallas by up to 4e-2 of the largest output at
+    # D = 3.  At D > 8 the points are rounded in both, and XLA stays the
+    # reference.  The frameworks still round at different places (XLA's
+    # bf16 matmul also rounds its output, torch accumulates and returns
+    # f32), so the tolerance is bf16's: 1e-2 of the largest output.
+    for d, fn, extra in ((3, kernel_matvec_pallas,
+                          dict(block_n=16, block_m=128, interpret=True)),
+                         (9, kernel_matvec_xla, dict(block_n=8))):
+        x, y, b = _points(rng, 33, 47, d, 2)
+        kw = dict(kernel_name=kernel, normalize_rows=normalize,
+                  precision="bfloat16")
+        got = _torch(x, y, b, **kw)
+        want = _jax(fn, x, y, b, **extra, **kw)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-2 * np.abs(want).max())
+        # And it is still the kernel product, to bf16 input accuracy.
+        truth = _truth(kernel, x, y, b, normalize)
+        assert np.abs(got - truth).max() / np.abs(truth).max() < 0.05
+
+
+def _rms(got, truth):
+    return float(np.sqrt(np.mean((got - truth) ** 2))
+                 / np.sqrt(np.mean(truth ** 2)))
+
+
+@pytest.mark.parametrize("cloud, kernel", [("sphere", "inverse-distance"),
+                                           ("cube", "gaussian")])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bfloat16_small_d_keeps_f32_points(cloud, kernel, seed):
+    # At D <= 8 the bf16 tier rounds the signal and each kernel value and
+    # keeps the points in f32, as the Pallas kernel does.  Held against
+    # kernel_matvec_pallas(precision="bfloat16", interpret=True) at 1e-2
+    # of the largest output (bf16's tolerance, as above), and against the
+    # float64 oracle: its RMS error may not exceed Pallas's (both round
+    # the same values; they differ only in summation order, so by 1e-3
+    # of it at most).
+    rng = np.random.default_rng(seed)
+    n = 500
+    if cloud == "sphere":
+        from kmb_tpu_torch.datasets import fibonacci_sphere
+        y = fibonacci_sphere(n).astype(np.float32)
+    else:
+        y = rng.random((n, 3)).astype(np.float32)
+    b = rng.standard_normal((n, 1)).astype(np.float32)
+    kw = dict(kernel_name=kernel, precision="bfloat16")
+    got = _torch(y, y, b, **kw)
+    want = _jax(kernel_matvec_pallas, y, y, b, block_n=128, block_m=128,
+                interpret=True, **kw)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-2 * np.abs(want).max())
-    # And it is still the kernel product, to bf16 input accuracy.
-    truth = _truth(kernel, x, y, b, normalize)
-    assert np.abs(got - truth).max() / np.abs(truth).max() < 0.05
+    truth = _truth(kernel, y, y, b)
+    assert _rms(got, truth) <= (1 + 1e-3) * _rms(want, truth)
+    # Rounding the points as well (what the tier did before) is worse on
+    # the singular kernel's near pairs.
+    if kernel == "inverse-distance":
+        rounded = torch.from_numpy(y).to(torch.bfloat16).float().numpy()
+        worse = _torch(rounded, rounded, b, **kw)
+        assert _rms(got, truth) < _rms(worse, truth)
 
 
 def test_attention_bf16_keeps_f32_state(rng):
