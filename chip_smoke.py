@@ -35,11 +35,25 @@ Phases, each of which must pass:
    float64 (truth, residuals and that matrix).  The solver path's kernel
    shapes (the Nystrom sketch at E = 256, the E = 1 matvec at M = 10^4)
    are held against the plain version and timed.
+6. The approximate path, through the port's runner (runs=2): the
+   block-low-rank product (fixed rank and epsilon), Nystrom and random
+   features (product and attention, materialised and streamed), the
+   Nystrom ridge solver and the BLR MINRES solver with and without
+   iterative refinement, at registry size.  Each is held against its
+   float64 truth computed on the card (a product's RMS error, a solver's
+   true residual, the Nystrom solver's residual of its own ridge system)
+   under a limit fixed before the first run; BlrSolver must launch the
+   direct kernel in every query (its true residual), and that shape is
+   held against the plain version and timed.  One BLR build segment is
+   timed step by step beside the alternatives the build does not take
+   (torch.linalg.qr, eigh on the card), and one BlrSolver matvec beside
+   its far-field products alone.
 
 The last line is {"ok": true, "device": {...}} and is printed only when
 every phase passed; the line before it holds the kernels' numbers, one
-entry per kernel, dataset and tier, and the line before that the solver
-runs'.  Nothing is written outside the git-ignored kernel build directory.
+entry per kernel, dataset and tier, and the lines before that the solver
+runs' and the approximate runs'.  Nothing is written outside the
+git-ignored kernel build directory.
 """
 
 from __future__ import annotations
@@ -150,6 +164,58 @@ DENSE_JAX_CPU_BACKWARD_ERROR = {
     (NORMAL_5000, "lu", "bfloat16"): 2.562492e-06,
     (NORMAL_5000, "svd", "float32"): 3.009504e-07,
 }
+
+# Phase 6, the approximate path: (label, dataset, constructor, constructor
+# args, query args, what is held, limit, the JAX package's TPU record of
+# the same configuration).  Records: results/<dataset>/tpu-*-product/ and
+# .../blr-solver/ (`error` datasets and attributes; accuracy and counts
+# only, never times).  Limits, fixed before the first chip run: twice the
+# record (the port computes in true float32 where the TPU's default
+# matmuls were bf16 passes; the random draws differ between the packages),
+# and for the Nystrom ridge solver ten times the residual of its own
+# ridge system that kmb_tpu reaches on the CPU (NYSTROM_JAX_CPU_RIDGE).
+PRODUCT_CUBE = "product-cube-D3-E1-M131072-N131072-gaussian"
+PRODUCT_SPHERE = "product-sphere-D3-E1-M131072-N131072-inverse-distance"
+ATTENTION = "attention-normal-D64-E8-M10000-N10000-exponential"
+BLR_SOLVER_ARGS = {"leaf": 256, "rank": 64, "eta": 2.0, "epsilon": 1e-4}
+APPROX_PATH = (
+    ("BLR product, fixed rank", PRODUCT_CUBE, "BlrProduct",
+     {"leaf": 256, "rank": 16, "eta": 2.0}, {}, "rms", 5.1e-3,
+     {"rms": 2.556e-3, "compression": 15.5446}),
+    ("BLR product, epsilon", PRODUCT_SPHERE, "BlrProduct",
+     {"leaf": 256, "rank": 64, "eta": 2.0, "epsilon": 1e-3}, {}, "rms",
+     1.3e-3, {"rms": 6.613e-4, "compression": 74.228}),
+    ("Nystrom product", PRODUCT_CUBE, "NystromProduct", {"rank": 512}, {},
+     "rms", 1.13e-2, {"rms": 5.642e-3, "compression": 127.75}),
+    ("Nystrom attention", ATTENTION, "NystromProduct", {"rank": 512}, {},
+     "rms", 2.97e-2, {"rms": 1.485e-2, "compression": 9.52}),
+    ("random features", PRODUCT_CUBE, "RandomFeatureProduct",
+     {"num_features": 1024}, {}, "rms", 1.31e-1,
+     {"rms": 6.573e-2, "compression": 64.0}),
+    ("random features attention", ATTENTION, "RandomFeatureProduct",
+     {"num_features": 1024}, {}, "rms", 1.28e-1,
+     {"rms": 6.381e-2, "compression": 4.88}),
+    ("random features attention, streamed", ATTENTION,
+     "RandomFeatureProduct", {"num_features": 1024, "stream_bytes": 0}, {},
+     "rms", 1.28e-1, {"rms": 6.381e-2, "compression": 4.88}),
+    ("Nystrom ridge solver", CUBE_131072, "NystromSolver", {"rank": 512},
+     {"lam": 1e-2}, "ridge residual", None, None),
+    ("BLR MINRES", SPHERE_131072, "BlrSolver", BLR_SOLVER_ARGS,
+     {"tol": 1e-5, "max_iters": 2000}, "true residual", 2e-3,
+     {"iterations": 2000, "true residual": 5.838e-4, "compression": 49.87}),
+    ("BLR MINRES, iterative refinement", SPHERE_131072, "BlrSolver",
+     BLR_SOLVER_ARGS, {"tol": 1e-8, "max_iters": 2000, "refine_iters": 3,
+                       "inner_tol": 1e-4}, "true residual", 2e-4,
+     {"iterations": 6000, "outer": 3, "true residual": 5.210e-5,
+      "compression": 49.87}),
+)
+# ||(lam I + C C^T) b - a|| / ||a|| of kmb_tpu's NystromSolver(rank=512,
+# lam=1e-2) on CUBE_131072, on the CPU
+# (`KMB_PLATFORM=cpu PYTHONPATH=. python tests/test_torch_approx_engine.py`).
+NYSTROM_JAX_CPU_RIDGE = 1.072553e+00
+# The streamed random features against the materialised ones, relative to
+# the largest output (tests/test_lowrank.py:237).
+STREAM_TOL = 2e-5
 
 REPLACES = {
     "direct": "kmb_tpu/ops/product.py:230 (_direct_kernel_body, "
@@ -543,10 +609,14 @@ def main():
         del x, y, b
         torch.cuda.empty_cache()
 
-    solvers = solver_path(dev, card, sfu_rate, entries, time_ms)
+    solvers, solver_datasets = solver_path(dev, card, sfu_rate, entries,
+                                           time_ms)
+    approx = approx_path(dev, card, sfu_rate, entries, time_ms,
+                         {**datasets, **solver_datasets})
 
     check({entry["name"] for entry in entries} == {"direct", "flash"},
           "a kernel was not timed")
+    print(json.dumps({"approx": approx}))
     print(json.dumps({"solvers": solvers}))
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -748,7 +818,273 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
             launches_per_call=per_call))
         del y, b
         torch.cuda.empty_cache()
+    return records, datasets
+
+
+def rms_error(row, truth):
+    """RMS(result - truth) / RMS(truth), the main path's product error."""
+    return float(np.sqrt(np.mean(row.error ** 2))
+                 / np.sqrt(np.mean(truth ** 2)))
+
+
+def approx_path(dev, card, sfu_rate, entries, time_ms, datasets):
+    """Phase 6: the approximate path on the card (see the module
+    docstring).
+
+    `datasets` holds the arrays, with their float64 truth, of phases 3 and
+    5.  Appends the BlrSolver's direct-kernel shape to `entries` and
+    returns one record per run of APPROX_PATH."""
+    from kmb_tpu_torch.algorithms import torch_approx
+    from kmb_tpu_torch.definitions import Definition
+    from kmb_tpu_torch.ops import _build
+    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    def true_residual(arrays, b):
+        y64 = torch.tensor(arrays["source_points"], device=dev)
+        a64 = torch.tensor(arrays["target_signal"], device=dev)
+        kb = kernel_matvec_torch(y64, y64, torch.tensor(b, device=dev),
+                                 kernel_name=arrays["kernel"])
+        return float(torch.linalg.norm(kb - a64) / torch.linalg.norm(a64))
+
+    # The Nystrom solver's factor C of its last build (the runner keeps the
+    # last candidate), for the residual of its own ridge system.
+    built = []
+    real_build = torch_approx.nystrom_solver_build
+
+    def spy_build(*args, **kwargs):
+        out = real_build(*args, **kwargs)
+        built.append(out[0])
+        return out
+
+    # The last BLR operator built, for the matvec breakdown.
+    operators = []
+    real_operator = torch_approx.BlrOperator
+
+    def spy_operator(*args, **kwargs):
+        operators[:] = [real_operator(*args, **kwargs)]
+        return operators[0]
+
+    query_launches = []
+    real_query = torch_approx.BlrSolver.query
+
+    def counted_query(self):
+        before = _build.DIRECT.launches
+        try:
+            return real_query(self)
+        finally:
+            query_launches.append(_build.DIRECT.launches - before)
+
+    records = []
+    materialised = None
+    started = time.perf_counter()
+    _build.reset_launch_counts()
+    torch_approx.nystrom_solver_build = spy_build
+    torch_approx.BlrOperator = spy_operator
+    torch_approx.BlrSolver.query = counted_query
+    try:
+        for (label, name, constructor, args, query, held, limit,
+             record) in APPROX_PATH:
+            arrays = datasets[name]
+            definition = Definition(
+                algorithm=f"torch-{constructor}",
+                module="kmb_tpu_torch.algorithms.torch_approx",
+                constructor=constructor,
+                arguments={"kernel": arrays["kernel"],
+                           "dimension": arrays["source_points"].shape[1],
+                           "normalize_rows": bool(arrays["normalize_rows"]),
+                           **args},
+                query_argument_groups=[query])
+            built.clear()
+            query_launches.clear()
+            (row,) = run_on_arrays(definition, arrays, runs=2)
+            attrs = row.attrs
+            solver = constructor in ("NystromSolver", "BlrSolver")
+            truth = arrays["source_signal" if solver else "target_signal"]
+            check(np.all(np.isfinite(row.result))
+                  and row.result.shape == truth.shape,
+                  f"{label}: result not finite or misshapen")
+            entry = dict(label=label, dataset=name, args=args, query=query,
+                         build_s=attrs["build_time"],
+                         query_s=attrs["query_time"], held=held,
+                         jax_tpu_record=record, card=card)
+            for key in ("compression", "rank", "num_features", "streaming",
+                        "near_pairs", "near_sym_pairs", "far_pairs",
+                        "mean_block_rank", "build_qr_seconds",
+                        "build_eigh_seconds", "cg_iterations",
+                        "ir_outer_iterations", "cg_relative_residual",
+                        "true_relative_residual"):
+                if key in attrs:
+                    entry[key] = attrs[key]
+            if held == "rms":
+                measured = rms_error(row, arrays["target_signal"])
+            elif held == "ridge residual":
+                check(len(built) == 2, f"{label}: {len(built)} builds")
+                c = built[-1].double()
+                b = torch.tensor(row.result, device=dev)
+                a = torch.tensor(arrays["target_signal"], device=dev)
+                lam = query["lam"]
+                measured = float(torch.linalg.norm(lam * b + c @ (c.T @ b)
+                                                   - a)
+                                 / torch.linalg.norm(a))
+                limit = 10 * NYSTROM_JAX_CPU_RIDGE
+                entry["jax_cpu_ridge_residual"] = NYSTROM_JAX_CPU_RIDGE
+                entry["true_residual"] = true_residual(arrays, row.result)
+            else:
+                measured = true_residual(arrays, row.result)
+                check(len(query_launches) == 2
+                      and min(query_launches) >= 1,
+                      f"{label}: direct-kernel launches per query "
+                      f"{query_launches}")
+                entry["direct_launches_per_query"] = query_launches[:]
+                if "refine_iters" not in query:
+                    entry.update(blr_matvec_breakdown(
+                        operators[0], attrs, time_ms, dev))
+            check(measured <= limit,
+                  f"{label} on {name}: {held} {measured:.3e} > {limit:.3e}")
+            entry.update(measured=measured, limit=limit)
+            if constructor == "BlrProduct" and "epsilon" not in args:
+                # A fixed rank: the compression follows from the plan.
+                check(round(attrs["compression"], 4) == record["compression"],
+                      f"{label}: compression {attrs['compression']:.6f}, "
+                      f"record {record['compression']}")
+            if args.get("stream_bytes") == 0:
+                check(attrs["streaming"], f"{label}: did not stream")
+                ref = torch.tensor(materialised)
+                diff = float((torch.tensor(row.result) - ref).abs().max()
+                             / ref.abs().max())
+                check(diff <= STREAM_TOL, f"{label}: streamed differs from "
+                      f"materialised by {diff:.3e} > {STREAM_TOL}")
+                entry["streamed_vs_materialised"] = diff
+            elif constructor == "RandomFeatureProduct":
+                materialised = row.result
+            records.append(entry)
+            shown = {k: v for k, v in entry.items()
+                     if k not in ("label", "dataset", "args", "query",
+                                  "card", "held", "measured", "limit")}
+            print(f"phase 6: {label} on {name} {args} {query}: {held} "
+                  f"{measured:.4e} (limit {limit:.3e}), {shown} [{card}]")
+    finally:
+        torch_approx.nystrom_solver_build = real_build
+        torch_approx.BlrOperator = real_operator
+        torch_approx.BlrSolver.query = real_query
+        operators.clear()
+    launches = {k.symbol: k.launches for k in _build.KERNELS}
+    check(_build.DIRECT.launches > 0,
+          "the approximate path launched no direct kernel")
+    print(f"phase 6: approximate path launches {launches}")
+
+    blr_build_segment(datasets[SPHERE_131072], card, dev)
+
+    # BlrSolver's true residual: the direct kernel at E = 1 on the sphere,
+    # against the plain version, timed.
+    arrays = datasets[SPHERE_131072]
+    y = torch.tensor(np.asarray(arrays["source_points"], np.float32),
+                     device=dev)
+    b = torch.randn((len(y), 1), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    kw = dict(kernel_name=arrays["kernel"], precision="float32")
+    got = kernel_matvec(y, y, b, **kw)
+    ref = kernel_matvec_torch(y, y, b, **kw)
+    err, rel = compare(got, ref)
+    check(rel <= KERNEL_TOL["float32"],
+          f"approximate path {SPHERE_131072}: kernel vs plain {rel:.3e}")
+    del got, ref
+    ms = time_ms(lambda: kernel_matvec(y, y, b, **kw), 3)
+    plain_ms = time_ms(lambda: kernel_matvec_torch(y, y, b, **kw), 1)
+    n, d = y.shape
+    bound, bound_by, engine = bound_ms(n, n, d, 1, "direct", False,
+                                       "float32", sfu_rate)
+    print(f"phase 6: direct kernel, BlrSolver true residual on "
+          f"{SPHERE_131072} E=1 [float32]: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({engine}), "
+          f"launches {launches[_build.DIRECT.symbol]}, max_abs_err vs plain "
+          f"{err:.3e} [{card}]")
+    entries.append(dict(
+        name="direct", route="cuda", source=SOURCE,
+        replaces=REPLACES["direct"], launches=launches[_build.DIRECT.symbol],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=None,
+        at=f"{SPHERE_131072}, approximate path (BlrSolver true residual), "
+           "E=1", precision="float32", bound_engine=engine,
+        kernel_device_ms=None))
+    print(f"phase 6: {time.perf_counter() - started:.1f} s [{card}]")
     return records
+
+
+def blr_matvec_breakdown(op, attrs, time_ms, dev):
+    """One E = 1 matvec of a built BLR operator against its far-field
+    products alone (U (V b_j) and the mirrored V^T (U^T b_i), as the
+    matvec forms them), CUDA events; and that share of the solver's query.
+    """
+    b = torch.randn((op.m, 1), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    blocks = op.block_signal(b)
+    out = blocks.new_zeros((op.plan.num_x_blocks, op.plan.num_y_blocks,
+                            op.plan.leaf, 1))
+
+    def far_field():
+        for u, v, far_j, far_i in op.far_groups:
+            out[far_i, far_j] = u @ (v @ blocks[far_j])
+        for (u, v, _, _), (far_i, far_j) in zip(op.far_groups,
+                                                op.mirror_groups):
+            out[far_j, far_i] = v.mT @ (u.mT @ blocks[far_i])
+
+    matvec_ms = time_ms(lambda: op.matvec(b), 10)
+    far_ms = time_ms(far_field, 10)
+    iterations = attrs["cg_iterations"]
+    return {"matvec_ms": matvec_ms, "far_field_ms": far_ms,
+            "far_field_share_of_matvec": far_ms / matvec_ms,
+            "far_field_share_of_query": far_ms * 1e-3 * iterations
+            / attrs["query_time"]}
+
+
+def blr_build_segment(arrays, card, dev):
+    """One build segment (BUILD_SEGMENT far pairs of the sphere, leaf 256,
+    rank 64) step by step, beside the alternatives the build does not
+    take: torch.linalg.qr (Q one matrix at a time) for the WY thin QR, and
+    torch.linalg.eigh in float64 on the card for the host LAPACK eigh.
+    Second of two passes (the first warms up)."""
+    from kmb_tpu_torch.ops import blr
+    from kmb_tpu_torch.utils import highest_precision
+
+    y = np.asarray(arrays["source_points"], np.float32)
+    plan = blr.build_plan(y, y, leaf=256, eta=2.0, same_points=True)
+    pts = torch.tensor(y[plan.gather_x], device=dev)
+    pairs = torch.tensor(plan.far_pairs[:blr.BUILD_SEGMENT], dtype=torch.long,
+                         device=dev)
+    spec = blr.get_kernel(arrays["kernel"])
+    omega = blr.draw_test_matrix(256, 64, 0, device=dev)
+    for _ in range(2):
+        seconds = {}
+
+        def step(key, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds[key] = time.perf_counter() - t0
+            return out
+
+        with highest_precision():
+            k_tile = step("tile", blr._kernel_tile, spec, pts[pairs[:, 0]],
+                          pts[pairs[:, 1]])
+            sketch = step("sketch", torch.matmul, k_tile, omega)
+            q = step("wy_qr", blr._thin_q, sketch)
+            q_lib, _ = step("linalg_qr", torch.linalg.qr, sketch)
+            v = step("projection", torch.matmul, q.mT, k_tile)
+            gram = step("gram", blr._batched_gram, v)
+        w_host, _ = step("host_eigh", blr._host_eigh, gram)
+        w_card, _ = step("card_eigh", torch.linalg.eigh, gram.double())
+    check(float((q @ q.mT - q_lib @ q_lib.mT).abs().max()) < 1e-4,
+          "the WY Q spans another range than torch.linalg.qr's")
+    diff = float(np.abs(w_host - w_card.cpu().numpy()).max()
+                 / np.abs(w_host).max())
+    check(diff < 1e-12, f"host and card eigenvalues differ by {diff:.3e}")
+    print(f"phase 6: BLR build segment of {len(pairs)} pairs (sphere, leaf "
+          f"256, rank 64), seconds: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+          + f"; kept WY QR and host eigh [{card}]")
 
 
 if __name__ == "__main__":

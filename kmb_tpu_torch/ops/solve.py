@@ -34,7 +34,6 @@ HIGHEST because lower precision made the Nystrom Gram indefinite.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from typing import Callable, Optional
@@ -46,6 +45,7 @@ from kmb_tpu_torch.algorithms.bruteforce_numpy import blocked_kernel_product
 from kmb_tpu_torch.ops.blr import _cluster
 from kmb_tpu_torch.ops.kernels import get_kernel
 from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+from kmb_tpu_torch.utils import highest_precision
 
 # Kernels whose Gram matrix is symmetric positive (semi-)definite on
 # distinct points; CG applies directly.  The zero-diagonal inverse-distance
@@ -60,17 +60,6 @@ NYSTROM_REL_FLOOR = 1e-4
 
 _TINY = torch.finfo(torch.float32).tiny
 _EPS = torch.finfo(torch.float32).eps
-
-
-@contextlib.contextmanager
-def highest_precision():
-    """True float32 matmuls (no TF32) inside; the caller's setting after."""
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved)
 
 
 def _check_choice(name, value, choices):

@@ -2,7 +2,20 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def highest_precision():
+    """True float32 matmuls (no TF32) inside; the caller's setting after."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 def hard_fence(tree):

@@ -189,9 +189,10 @@ def _plain_matvec(y, kernel):
 # the same problem is given in another order (other float32 roundings):
 # its largest departure from the count in the registry's order, over
 # eight orderings (solver_accuracy.py part 3, on an H100): 116 of 284
-# for unpreconditioned CG on the Gaussian cube (condition beyond float32),
-# 264 of 489 for CG on the normal equations (condition squared); 5% where
-# that departure is smaller (at most 3.9%).
+# for unpreconditioned CG on the Gaussian cube (condition beyond float32);
+# 5% where that departure is smaller (at most 3.9%).  CG on the normal
+# equations (condition squared, 264 of 489) is held over nine orderings
+# below.
 SOLVES = [
     ("solver-cube-D3-E1-M2000-N2000-gaussian", None, "auto", 1e-6, 0.41),
     ("solver-cube-D3-E1-M2000-N2000-gaussian", "jacobi", "auto", 1e-6,
@@ -200,8 +201,6 @@ SOLVES = [
      0.05),
     ("solver-sphere-D3-E1-M2000-N2000-inverse-distance", "jacobi", "minres",
      1e-5, 0.05),
-    ("solver-sphere-D3-E1-M2000-N2000-inverse-distance", None, "normal",
-     1e-6, 0.54),
 ]
 
 
@@ -221,8 +220,7 @@ def test_krylov_on_the_kernel_matches_plain_version(name, precond, method,
     pb, pit, pres = solve.cg_solve(y, rhs,
                                    matvec=_plain_matvec(y, kernel), **kw)
     assert _build.DIRECT.launches - before == launched   # plain: none
-    per_iteration = 2 if method == "normal" else 1
-    assert launched >= per_iteration * it > 0
+    assert launched >= it > 0
     assert abs(it - pit) <= max(2, band * pit), (it, pit)
     # Both converge alike: within 2x of the plain solve's residual, or to
     # the tolerance.
@@ -232,22 +230,32 @@ def test_krylov_on_the_kernel_matches_plain_version(name, precond, method,
 
 @pytest.mark.cuda
 def test_normal_equations_match_plain_version_over_orderings(solver_problem):
-    # CG on K^2 stops either near 4e-6 after about 500 iterations or near
-    # 2e-5 after about 340, by the roundings: one ordering against one is
-    # a draw (the single-ordering case above), so the medians over eight
-    # orderings are compared, to the same band and factor.
+    # CG on K^2 (band 0.54: 264 of 489) stops either near 4e-6 after
+    # about 500 iterations or near 2e-5 after about 340, by the roundings:
+    # one ordering against one is a draw (the plain version fails that
+    # comparison against itself in 5 of 7 orderings), so the medians over
+    # nine orderings, the registry's and eight permutations, are compared,
+    # to the band and factor of a single solve.  Every solve must launch
+    # the kernel twice per iteration, the plain one never.
     name = "solver-sphere-D3-E1-M2000-N2000-inverse-distance"
     kernel, y0, rhs0 = solver_problem(name)
     kw = dict(kernel_name=kernel, tol=1e-6, max_iters=2000,
               indefinite_method="normal")
     runs = []
-    for seed in range(8):
-        perm = torch.randperm(len(y0), device="cuda", generator=(
-            torch.Generator(device="cuda").manual_seed(seed)))
-        y, rhs = y0[perm].contiguous(), rhs0[perm].contiguous()
-        _, it, res = solve.cg_solve(y, rhs, **kw)
+    for seed in [None, *range(8)]:
+        y, rhs = y0, rhs0
+        if seed is not None:
+            perm = torch.randperm(len(y0), device="cuda", generator=(
+                torch.Generator(device="cuda").manual_seed(seed)))
+            y, rhs = y0[perm].contiguous(), rhs0[perm].contiguous()
+        before = _build.DIRECT.launches
+        b, it, res = solve.cg_solve(y, rhs, **kw)
+        launched = _build.DIRECT.launches - before
         _, pit, pres = solve.cg_solve(y, rhs,
                                       matvec=_plain_matvec(y, kernel), **kw)
+        assert _build.DIRECT.launches - before == launched   # plain: none
+        assert launched >= 2 * it > 0
+        assert b.is_cuda and bool(torch.isfinite(b).all())
         runs.append((it, res, pit, pres))
     it, res, pit, pres = np.median(np.array(runs), axis=0)
     assert abs(it - pit) <= 0.54 * pit, runs
@@ -375,3 +383,112 @@ def test_solver_cg_lifecycle_on_the_card(solver_problem):
     assert extra["device_name"] == torch.cuda.get_device_name()
     assert algo.get_result().dtype == np.float64
     algo.done()
+
+
+# The approximate engines on the card (ops/blr.py, ops/lowrank.py,
+# algorithms/torch_approx.py): held against the same computation on the
+# CPU, with the ranks and matvec tolerances of tests/test_torch_blr.py.
+BLR_ARGS = dict(kernel_name="inverse-distance", leaf=64, rank=64, eta=2.0,
+                epsilon=1e-4, same_points=True)   # 484 far pairs at M = 2000
+
+
+@pytest.fixture
+def blr_problem(solver_problem):
+    _, y, rhs = solver_problem(
+        "solver-sphere-D3-E1-M2000-N2000-inverse-distance")
+    from kmb_tpu_torch.ops import blr
+
+    omega = blr.draw_test_matrix(64, 64, 0, device="cpu")
+    return y.cpu().numpy(), rhs, omega
+
+
+@pytest.mark.cuda
+def test_blr_build_and_matvec_on_the_card_match_the_cpu(blr_problem):
+    from kmb_tpu_torch.ops import blr
+
+    y, rhs, omega = blr_problem
+    card = blr.BlrOperator(y, y, omega=omega, device="cuda", **BLR_ARGS)
+    host = blr.BlrOperator(y, y, omega=omega, device="cpu", **BLR_ARGS)
+    assert card.block_ranks.size > 100
+    assert np.mean(card.block_ranks == host.block_ranks) >= 0.99
+    assert np.abs(card.block_ranks - host.block_ranks).max() <= 1
+    got = card.matvec(rhs)
+    assert got.is_cuda
+    _close(got.cpu(), host.matvec(rhs.cpu()), 5e-4)
+
+
+@pytest.mark.cuda
+def test_blr_matvec_on_the_card_is_bit_identical(blr_problem):
+    from kmb_tpu_torch.ops import blr
+
+    y, rhs, omega = blr_problem
+    op = blr.BlrOperator(y, y, omega=omega, device="cuda", **BLR_ARGS)
+    first = op.matvec(rhs)
+    assert all(torch.equal(first, op.matvec(rhs)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_blr_build_ignores_a_process_wide_tf32(blr_problem):
+    from kmb_tpu_torch.ops import blr
+
+    y, rhs, omega = blr_problem
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = blr.BlrOperator(y, y, omega=omega, device="cuda", **BLR_ARGS)
+        a = torch.randn((512, 512), device="cuda")
+        exact = a @ a
+        torch.set_float32_matmul_precision("high")
+        # The setting is live: a bare matmul now runs on TF32 ...
+        assert not torch.allclose(a @ a, exact, rtol=1e-5, atol=1e-5)
+        # ... and the build and the matvec do not.
+        got = blr.BlrOperator(y, y, omega=omega, device="cuda", **BLR_ARGS)
+        np.testing.assert_array_equal(got.block_ranks, want.block_ranks)
+        assert torch.equal(got.matvec(rhs), want.matvec(rhs))
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+@pytest.mark.cuda
+def test_blr_solver_true_residual_is_one_direct_launch(blr_problem):
+    from kmb_tpu_torch.algorithms.torch_approx import BlrSolver
+
+    y, rhs, _ = blr_problem
+    algo = BlrSolver(kernel="inverse-distance", dimension=3, rank=64,
+                     epsilon=1e-4, tol=1e-5, max_iters=2000)
+    assert algo.device.type == "cuda"
+    algo.prepare_data(source_points=y)
+    algo.fit()
+    algo.prepare_query(target_signal=rhs.cpu().numpy())
+    before = _build.DIRECT.launches
+    algo.query()
+    assert _build.DIRECT.launches - before == 1
+    extra = algo.get_additional()
+    assert extra["cg_iterations"] > 0
+    before = _build.DIRECT.launches
+    residual = algo._true_residual(algo.res)
+    assert _build.DIRECT.launches - before == 1
+    assert residual == pytest.approx(extra["true_relative_residual"])
+    assert algo.get_result().dtype == np.float64
+    algo.done()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gaussian", "exponential"])
+def test_streamed_random_features_match_materialised(kernel, cuda_points):
+    from kmb_tpu_torch.ops import lowrank
+
+    x, y, b = cuda_points(5000, 7000, 8, 3)
+    omega, phase = lowrank.random_feature_params(8, kernel, 512, seed=0,
+                                                 device="cuda")
+    normalize = kernel == "exponential"
+    want = lowrank.feature_apply(lowrank._feature_block(omega, phase, x),
+                                 lowrank._feature_block(omega, phase, y), b,
+                                 normalize_rows=normalize)
+    got = lowrank.feature_apply_streamed(omega, phase, x, y, b,
+                                         normalize_rows=normalize,
+                                         block=1024)
+    assert got.is_cuda
+    # tests/test_lowrank.py:237's 2e-5, of the largest output.
+    _close(got, want, 2e-5)

@@ -195,8 +195,9 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("kmb_tpu_torch.ops.product", "kmb_tpu_torch.ops.solve",
-                   "kmb_tpu_torch.ops.blr",
+                   "kmb_tpu_torch.ops.blr", "kmb_tpu_torch.ops.lowrank",
                    "kmb_tpu_torch.algorithms.torch_engine",
+                   "kmb_tpu_torch.algorithms.torch_approx",
                    "kmb_tpu_torch.__main__"):
         assert module in report["modules"]
     loaded = report["loaded"]

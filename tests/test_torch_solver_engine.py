@@ -272,8 +272,10 @@ def test_definitions_pick_the_solvers_by_tier():
     gpu = get_definitions(dataset=CUBE, task="solver", hardware="GPU")
     cpu = get_definitions(dataset=CUBE, task="solver", hardware="CPU")
     assert {d.algorithm for d in gpu} == {
-        "torch-solver-direct", "torch-solver-cg", "torch-solver-cpu"}
+        "torch-solver-direct", "torch-solver-cg", "torch-solver-cpu",
+        "torch-blr-solver", "torch-nystrom-solver"}
     assert {d.algorithm for d in cpu} == {"torch-solver-cpu"}
     big = get_definitions(dataset="solver-cube-D3-E1-M131072-N131072-"
                           "gaussian", task="solver", hardware="GPU")
-    assert {d.algorithm for d in big} == {"torch-solver-cg"}
+    assert {d.algorithm for d in big} == {
+        "torch-solver-cg", "torch-blr-solver", "torch-nystrom-solver"}
