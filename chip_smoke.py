@@ -5,6 +5,11 @@ Run from the repository root on a machine with one CUDA card (sm_90a):
 
     python3 chip_smoke.py
 
+`--phases 7,8` (any comma-separated subset; default all) runs only those
+phases: phase 1 always runs, phase 8 brings phase 7 (its single-card
+baselines), and a phase makes the datasets and truths it needs when the
+phase that makes them is not run.
+
 Phases, each of which must pass:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
@@ -48,21 +53,47 @@ Phases, each of which must pass:
    timed step by step beside the alternatives the build does not take
    (torch.linalg.qr, eigh on the card), and one BlrSolver matvec beside
    its far-field products alone.
+7. The sharded path on one card, in an NCCL world of one
+   (parallel/multihost.initialize): ShardedProduct (ring and all-pairs) on
+   the cube, the sphere and attention, and ShardedSolverCG (Nystrom PCG on
+   the solver cube, MINRES on the solver sphere), through the port's
+   runner (runs=2), each held against its float64 truth under phase 3's
+   and phase 5's limits, the products also against the single-card
+   TorchProduct answer, the PCG iterations within max(3, 10%) of the
+   single-card TorchSolverCG's.  Then the per-shard arithmetic of four
+   cards on this one: the ring's chunks and fold for four virtual ranks,
+   the all-pairs blocks on a virtual 2 x 2 grid, against the single-card
+   product and the float64 truth; and the ring chunk's kernel shapes at
+   p = 4 against the plain version, timed.
+8. Four cards (when the machine has them; otherwise a line says it was not
+   run): four NCCL ranks, one process per card, run the ring and the 2 x 2
+   all-pairs product on the cube, the sphere and attention and
+   ShardedSolverCG(precond_rank=256) on the solver cube through the
+   runner (runs=2; times are the slowest rank's).  Rank 0's answers are
+   held against the same truths and limits; each query's time is printed
+   beside the single-card time of phase 7, the scaling efficiency
+   (single-card time / (4 x sharded time)) and, for the ring, the sum of
+   its chunk kernels' times (CUDA events, the slowest rank's).
 
 The last line is {"ok": true, "device": {...}} and is printed only when
 every phase passed; the line before it holds the kernels' numbers, one
-entry per kernel, dataset and tier, and the lines before that the solver
-runs' and the approximate runs'.  Nothing is written outside the
-git-ignored kernel build directory.
+entry per kernel, dataset and tier, and the lines before that the sharded
+runs', the solver runs' and the approximate runs'.  Nothing is written
+outside the git-ignored kernel build directory and the system's temporary
+directory (phase 8's rank reports, removed at the end).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -217,6 +248,27 @@ NYSTROM_JAX_CPU_RIDGE = 1.072553e+00
 # the largest output (tests/test_lowrank.py:237).
 STREAM_TOL = 2e-5
 
+# Phases 7 and 8, the sharded path (ShardedProduct, ShardedSolverCG).
+APPROX_DATASETS = (PRODUCT_CUBE, PRODUCT_SPHERE, ATTENTION, CUBE_131072,
+                   SPHERE_131072)
+SHARDED_PRODUCTS = (PRODUCT_CUBE, PRODUCT_SPHERE, ATTENTION)
+SCHEDULES = ("ring", "allpairs")
+# (label, dataset, constructor args, query args, limit on the float64 true
+# residual: phase 5's on the same dataset).  The MINRES entry has no
+# preconditioner: its TPU record (tpu-solver-cg, tol 1e-6) runs 2000
+# iterations to a reported 2.0e-4.
+SHARDED_SOLVERS = (
+    ("sharded Nystrom PCG", CUBE_131072,
+     {"precision": "float32", "precond_rank": 256},
+     {"tol": 1e-6, "max_iters": 2000}, 1e-5),
+    ("sharded MINRES", SPHERE_131072, {"precision": "float32"},
+     {"tol": 1e-6, "max_iters": 2000}, 1e-2),
+)
+SHARDED_DATASETS = SHARDED_PRODUCTS + (CUBE_131072, SPHERE_131072)
+FOUR_CARDS = 4
+PCG_ORDERINGS = 4   # orderings of the points for the single-card PCG spread
+FOUR_CARD_TIMEOUT = 600   # seconds for phase 8's ranks, start to report
+
 REPLACES = {
     "direct": "kmb_tpu/ops/product.py:230 (_direct_kernel_body, "
               "pallas_call at :638)",
@@ -336,18 +388,103 @@ def bound_ms(n, m, d, e, which, normalize, tier, sfu_rate):
             else "operations", engine)
 
 
-def main():
+def cuda(a):
+    """A float32 copy of `a` on the card."""
+    return torch.tensor(np.asarray(a, np.float32), device="cuda")
+
+
+def time_ms(fn, reps):
+    """Milliseconds per call of `fn`, CUDA events around `reps` calls after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def kernel_device_ms(fn, reps=3):
+    """Device time of one launch of the hand-written kernel (the
+    profiler's records whose name holds "_d_kernel", averaged over the
+    records it kept), so `ms` splits into kernel and wrapper: the main
+    path launches one kernel per call (E <= 8).  None if the profiler
+    saw no such record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if "_d_kernel" in e.key]
+    count = sum(e.count for e in found)
+    us = sum(getattr(e, "self_device_time_total", 0) for e in found)
+    return us / count / 1e3 if count and us > 0 else None
+
+
+def load_datasets(names, datasets, card):
+    """Add each registry dataset of `names` missing from `datasets`, with
+    its float64 truth computed on the card; returns `datasets`."""
+    from kmb_tpu_torch.datasets import ground_truth, make_arrays
+
+    for name in names:
+        if name in datasets:
+            continue
+        arrays = make_arrays(name)
+        t0 = time.perf_counter()
+        arrays["target_signal"] = ground_truth(arrays, device="cuda")
+        torch.cuda.synchronize()
+        print(f"{name}: float64 truth on the card in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        datasets[name] = arrays
+    return datasets
+
+
+def parse_args(argv):
+    parser = argparse.ArgumentParser(
+        description="On-card smoke run of kmb_tpu_torch (see the module "
+                    "docstring).")
+    parser.add_argument(
+        "--phases", default="all",
+        help="comma-separated phases to run, e.g. 7,8 (default: all)")
+    # Phase 8 starts this script once per card with these.
+    parser.add_argument("--phase8-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--report", help=argparse.SUPPRESS)
+    return parser.parse_args(argv)
+
+
+def selected_phases(spec):
+    """The phases to run: phase 1 always; 4 brings 3 (its launch counts),
+    8 brings 7 (its single-card baselines)."""
+    if spec == "all":
+        return set(range(1, 9))
+    phases = {int(p) for p in spec.split(",")} | {1}
+    check(phases <= set(range(1, 9)), f"no such phase in {spec!r}")
+    if 4 in phases:
+        phases.add(3)
+    if 8 in phases:
+        phases.add(7)
+    return phases
+
+
+def main(argv=None):
+    options = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kmb_tpu_torch.datasets import ground_truth, make_arrays
-    from kmb_tpu_torch.definitions import Definition
+    if options.phase8_rank is not None:
+        return four_card_rank(options)
+    phases = selected_phases(options.phases)
     from kmb_tpu_torch.ops import _build
-    from kmb_tpu_torch.ops.product import (
-        kernel_matvec, kernel_matvec_torch)
-    from kmb_tpu_torch.runner import run_on_arrays
 
     dev = torch.device("cuda")
     # ---- 1. environment ---------------------------------------------------
@@ -381,13 +518,51 @@ def main():
               f"{found[0][1]} bytes spilled")
     sfu_rate = (SFU_PER_CLOCK_PER_SM * props.multi_processor_count
                 * max_clock_mhz * 1e6)
+    print(f"phases {sorted(phases)} [{card}]")
 
-    # ---- 2. kernels against their plain versions, on the card -------------
+    entries, datasets, per_run = [], {}, {}
+    solvers = approx = sharded = four = None
+    if 2 in phases:
+        kernels_vs_plain(dev)
+    if 3 in phases:
+        per_run = main_path(card, datasets)
+    if 4 in phases:
+        main_path_kernels(card, sfu_rate, entries, datasets, per_run)
+    if 5 in phases:
+        solvers, solver_datasets = solver_path(dev, card, sfu_rate, entries,
+                                               time_ms)
+        datasets.update(solver_datasets)
+    if 6 in phases:
+        approx = approx_path(dev, card, sfu_rate, entries, time_ms,
+                             load_datasets(APPROX_DATASETS, datasets, card))
+    if 7 in phases:
+        sharded, single_card = sharded_path(
+            dev, card, sfu_rate, entries,
+            load_datasets(SHARDED_DATASETS, datasets, card), solvers)
+    if 8 in phases:
+        four = four_cards(card, single_card)
+
+    if phases & {4, 7}:
+        check({entry["name"] for entry in entries} == {"direct", "flash"},
+              "a kernel was not timed")
+    for key, records in (("approx", approx), ("solvers", solvers),
+                         ("sharded", sharded), ("four_cards", four)):
+        if records is not None:
+            print(json.dumps({key: records}))
+    print(card)
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernels_vs_plain(dev):
+    """Phase 2: both kernels against the plain version on the card (see
+    the module docstring)."""
+    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+
     rng = np.random.default_rng(0)
-
-    def cuda(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
-
     worst = {"direct": (0.0, ""), "flash": (0.0, "")}  # relative, case
     n_cases = 0
 
@@ -464,17 +639,15 @@ def main():
         print(f"phase 2: worst {which} kernel relative error {rel:.3e} "
               f"({label})")
 
-    # ---- 3. the main path through the port's runner -----------------------
-    datasets = {}
-    for name, _, _ in MAIN_PATH:
-        arrays = make_arrays(name)
-        t0 = time.perf_counter()
-        arrays["target_signal"] = ground_truth(arrays, device="cuda")
-        torch.cuda.synchronize()
-        print(f"{name}: float64 truth on the card in "
-              f"{time.perf_counter() - t0:.2f} s [{card}]")
-        datasets[name] = arrays
 
+def main_path(card, datasets):
+    """Phase 3: the main path through the port's runner.  Adds its
+    datasets to `datasets`; returns the launches of each (dataset, tier)."""
+    from kmb_tpu_torch.definitions import Definition
+    from kmb_tpu_torch.ops import _build
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    load_datasets([name for name, _, _ in MAIN_PATH], datasets, card)
     _build.reset_launch_counts()
     per_run = {}   # (dataset, tier) -> launches of its kernel
     for name, which, what in MAIN_PATH:
@@ -520,40 +693,14 @@ def main():
         check(kernel.launches > 0,
               f"{kernel.symbol} never launched on the main path")
     print(f"phase 3: main path launches {launches}")
+    return per_run
 
-    # ---- 4. kernels at the main path's shapes: time, bound, library -------
-    def time_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
 
-    def kernel_device_ms(fn, reps=3):
-        """Device time of one launch of the hand-written kernel (the
-        profiler's records whose name holds "_d_kernel", averaged over the
-        records it kept), so `ms` splits into kernel and wrapper: the main
-        path launches one kernel per call (E <= 8).  None if the profiler
-        saw no such record."""
-        from torch.profiler import ProfilerActivity, profile
+def main_path_kernels(card, sfu_rate, entries, datasets, per_run):
+    """Phase 4: each kernel at the main path's shapes, timed beside its
+    plain version, its bound and the library; appends to `entries`."""
+    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
 
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if "_d_kernel" in e.key]
-        count = sum(e.count for e in found)
-        us = sum(getattr(e, "self_device_time_total", 0) for e in found)
-        return us / count / 1e3 if count and us > 0 else None
-
-    entries = []
     for name, which, _ in MAIN_PATH:
         arrays = datasets[name]
         y = cuda(arrays["source_points"])
@@ -609,22 +756,6 @@ def main():
         del x, y, b
         torch.cuda.empty_cache()
 
-    solvers, solver_datasets = solver_path(dev, card, sfu_rate, entries,
-                                           time_ms)
-    approx = approx_path(dev, card, sfu_rate, entries, time_ms,
-                         {**datasets, **solver_datasets})
-
-    check({entry["name"] for entry in entries} == {"direct", "flash"},
-          "a kernel was not timed")
-    print(json.dumps({"approx": approx}))
-    print(json.dumps({"solvers": solvers}))
-    print(card)
-    print(json.dumps({"kernels": entries}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
-
 
 def solver_path(dev, card, sfu_rate, entries, time_ms):
     """Phase 5: the solver path on the card (see the module docstring).
@@ -647,15 +778,6 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
         print(f"{name}: float64 truth on the card in "
               f"{time.perf_counter() - t0:.2f} s [{card}]")
         datasets[name] = arrays
-
-    def true_residual(arrays, b):
-        """||K b - a|| / ||a|| in float64 on the card, from the float64
-        points: independent of the solver's own report."""
-        y64 = torch.tensor(arrays["source_points"], device=dev)
-        a64 = torch.tensor(arrays["target_signal"], device=dev)
-        kb = kernel_matvec_torch(y64, y64, torch.tensor(b, device=dev),
-                                 kernel_name=arrays["kernel"])
-        return float(torch.linalg.norm(kb - a64) / torch.linalg.norm(a64))
 
     frobenius = {}
 
@@ -735,7 +857,7 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
         check(np.all(np.isfinite(row.result))
               and row.result.shape == arrays["source_signal"].shape,
               f"{label} on {name}: result not finite or misshapen")
-        res = true_residual(arrays, row.result)
+        res = float64_residual(arrays, row.result)
         attrs = row.attrs
         iterations = attrs.get("cg_iterations")
         fit_per_run = phase_launches["fit"] // 2
@@ -778,9 +900,6 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
 
     # The solver path's kernel shapes against the plain version, timed:
     # the Nystrom sketch (E = 256) and the E = 1 matvec of each dataset.
-    def cuda(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     for name, e in ((CUBE_131072, 256), (CUBE_131072, 1),
@@ -839,13 +958,6 @@ def approx_path(dev, card, sfu_rate, entries, time_ms, datasets):
     from kmb_tpu_torch.ops import _build
     from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
     from kmb_tpu_torch.runner import run_on_arrays
-
-    def true_residual(arrays, b):
-        y64 = torch.tensor(arrays["source_points"], device=dev)
-        a64 = torch.tensor(arrays["target_signal"], device=dev)
-        kb = kernel_matvec_torch(y64, y64, torch.tensor(b, device=dev),
-                                 kernel_name=arrays["kernel"])
-        return float(torch.linalg.norm(kb - a64) / torch.linalg.norm(a64))
 
     # The Nystrom solver's factor C of its last build (the runner keeps the
     # last candidate), for the residual of its own ridge system.
@@ -929,9 +1041,9 @@ def approx_path(dev, card, sfu_rate, entries, time_ms, datasets):
                                  / torch.linalg.norm(a))
                 limit = 10 * NYSTROM_JAX_CPU_RIDGE
                 entry["jax_cpu_ridge_residual"] = NYSTROM_JAX_CPU_RIDGE
-                entry["true_residual"] = true_residual(arrays, row.result)
+                entry["true_residual"] = float64_residual(arrays, row.result)
             else:
-                measured = true_residual(arrays, row.result)
+                measured = float64_residual(arrays, row.result)
                 check(len(query_launches) == 2
                       and min(query_launches) >= 1,
                       f"{label}: direct-kernel launches per query "
@@ -1085,6 +1197,508 @@ def blr_build_segment(arrays, card, dev):
           f"256, rank 64), seconds: "
           + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
           + f"; kept WY QR and host eigh [{card}]")
+
+
+def free_port():
+    """A free TCP port on this machine, for a process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def definition(module, constructor, arrays, args, query=None):
+    from kmb_tpu_torch.definitions import Definition
+
+    return Definition(
+        algorithm=f"torch-{constructor}",
+        module=f"kmb_tpu_torch.algorithms.{module}",
+        constructor=constructor,
+        arguments={"kernel": arrays["kernel"],
+                   "dimension": arrays["source_points"].shape[1],
+                   "normalize_rows": bool(arrays["normalize_rows"]),
+                   **args},
+        query_argument_groups=[query or {}])
+
+
+def float64_residual(arrays, b):
+    """||K b - a|| / ||a|| in float64 on the card from the float64 points:
+    independent of the solver's own report."""
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+
+    y64 = torch.tensor(arrays["source_points"], device="cuda")
+    a64 = torch.tensor(arrays["target_signal"], device="cuda")
+    kb = kernel_matvec_torch(y64, y64, torch.tensor(b, device="cuda"),
+                             kernel_name=arrays["kernel"])
+    return float(torch.linalg.norm(kb - a64) / torch.linalg.norm(a64))
+
+
+def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
+    """Phase 7: the sharded path on one card (see the module docstring).
+
+    Appends the ring chunk's kernel shapes at p = 4 to `entries`; returns
+    one record per sharded run and the single-card baselines phase 8
+    compares with."""
+    import functools
+
+    import torch.distributed as dist
+
+    from kmb_tpu_torch.ops import _build, solve
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+    from kmb_tpu_torch.parallel import multihost, sharded
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    started = time.perf_counter()
+    # Single-card baselines, not counted as the sharded path's launches:
+    # TorchProduct in float32; phase 5's Nystrom PCG (run here when phase 5
+    # was not), whose factors take the "svd" route; and the same PCG on
+    # the sharded build's route ("gram", the same test matrix).
+    single = {}
+    for name in SHARDED_PRODUCTS:
+        arrays = datasets[name]
+        (row,) = run_on_arrays(definition("torch_engine", "TorchProduct",
+                                          arrays, {"precision": "float32"}),
+                               arrays, runs=2)
+        single[name] = (row.result, row.attrs["query_time"])
+    pcg = next((r for r in solver_records or ()
+                if r["label"] == "Nystrom PCG" and r["dataset"] == CUBE_131072),
+               None)
+    if pcg is None:
+        _, name, constructor, args, query, _, _ = SOLVER_PATH[0]
+        (row,) = run_on_arrays(definition("torch_engine", constructor,
+                                          datasets[name], args, query),
+                               datasets[name], runs=2)
+        pcg = {"iterations": row.attrs["cg_iterations"],
+               "query_s": row.attrs["query_time"]}
+    # The "gram" PCG over orderings of the points (the test matrix's rows
+    # permuted with them): the same system and factors, other roundings,
+    # as sharding brings.  Ordering 0 is the registry's.
+    _, name, _, args, query, _, _ = SOLVER_PATH[0]
+    kernel = datasets[name]["kernel"]
+    y0 = cuda(datasets[name]["source_points"])
+    rhs0 = cuda(datasets[name]["target_signal"])
+    omega0 = sharded.draw_test_matrix(len(y0), args["precond_rank"], dev)
+    orders = np.random.default_rng(0)
+    counts = []
+    for ordering in range(PCG_ORDERINGS):
+        perm = torch.as_tensor(
+            np.arange(len(y0)) if ordering == 0
+            else orders.permutation(len(y0)), device=dev)
+        y, rhs = y0[perm], rhs0[perm]
+        u, lam = solve.nystrom_factors(
+            functools.partial(solve.kernel_matvec, y, y, kernel_name=kernel),
+            omega0[perm], method="gram")
+        _, iterations, _ = solve.cg_solve(
+            y, rhs, kernel_name=kernel, tol=query["tol"],
+            max_iters=query["max_iters"],
+            precond=functools.partial(solve.apply_nystrom_precond, u, lam))
+        counts.append(iterations)
+    pcg.update(gram_iterations=counts[0],
+               gram_spread=[min(counts), max(counts)])
+    del y0, rhs0, omega0, y, rhs, u, lam
+    print(f"phase 7: single-card baselines: TorchProduct float32 query "
+          + ", ".join(f"{name} {qt:.6f} s" for name, (_, qt) in single.items())
+          + f"; TorchSolverCG Nystrom PCG ('svd' factors) "
+          f"{pcg['iterations']} iterations, query {pcg['query_s']:.4f} s; "
+          f"the same PCG on 'gram' factors {pcg['gram_iterations']} "
+          f"iterations, {counts} over {PCG_ORDERINGS} orderings of the "
+          f"points [{card}]")
+
+    records = []
+    check(multihost.initialize(f"localhost:{free_port()}", num_processes=1,
+                               process_id=0), "no process group was made")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "phase 7 needs an NCCL world of one")
+        _build.reset_launch_counts()
+        for name in SHARDED_PRODUCTS:
+            arrays = datasets[name]
+            truth = arrays["target_signal"]
+            for schedule in SCHEDULES:
+                (row,) = run_on_arrays(
+                    definition("torch_sharded", "ShardedProduct", arrays,
+                               {"precision": "float32",
+                                "schedule": schedule}), arrays, runs=2)
+                check(np.all(np.isfinite(row.result))
+                      and row.result.shape == truth.shape,
+                      f"sharded {schedule} {name}: not finite or misshapen")
+                rel = rms_error(row, truth)
+                check(rel <= MAIN_PATH_BOUND["float32"],
+                      f"sharded {schedule} {name}: RMS error {rel:.3e}")
+                base, base_s = single[name]
+                record = dict(
+                    dataset=name, schedule=schedule,
+                    ranks=row.attrs["n_chips"],
+                    query_s=row.attrs["query_time"],
+                    single_card_query_s=base_s, rms=rel,
+                    bit_identical_to_single_card=bool(
+                        np.array_equal(row.result, base)),
+                    max_abs_diff_to_single_card=float(
+                        np.abs(row.result - base).max()))
+                records.append(record)
+                print(f"phase 7: ShardedProduct {schedule} on {name}: "
+                      f"query {record['query_s']:.6f} s (single card "
+                      f"{base_s:.6f} s), RMS rel error {rel:.3e}, "
+                      f"bit-identical to TorchProduct: "
+                      f"{record['bit_identical_to_single_card']} (max abs "
+                      f"diff {record['max_abs_diff_to_single_card']:.3e}) "
+                      f"[{card}]")
+        for label, name, args, query, limit in SHARDED_SOLVERS:
+            arrays = datasets[name]
+            (row,) = run_on_arrays(definition("torch_sharded",
+                                              "ShardedSolverCG", arrays,
+                                              args, query), arrays, runs=2)
+            check(np.all(np.isfinite(row.result))
+                  and row.result.shape == arrays["source_signal"].shape,
+                  f"{label}: result not finite or misshapen")
+            res = float64_residual(arrays, row.result)
+            check(res <= limit, f"{label}: true residual {res:.3e} > {limit}")
+            iterations = row.attrs["cg_iterations"]
+            if args.get("precond_rank"):
+                check_pcg_iterations(label, iterations, pcg)
+            record = dict(label=label, dataset=name, args=args, query=query,
+                          ranks=row.attrs["n_chips"],
+                          build_s=row.attrs["build_time"],
+                          query_s=row.attrs["query_time"],
+                          iterations=iterations,
+                          reported_residual=row.attrs["cg_relative_residual"],
+                          true_residual=res, limit=limit)
+            if args.get("precond_rank"):
+                record.update(single_card_svd_iterations=pcg["iterations"],
+                              single_card_gram_iterations=pcg[
+                                  "gram_iterations"],
+                              single_card_gram_spread=pcg["gram_spread"])
+            records.append(record)
+            print(f"phase 7: {label} on {name}: build "
+                  f"{record['build_s']:.4f} s, query {record['query_s']:.4f}"
+                  f" s, {iterations} iterations (single card, 'svd' / "
+                  f"'gram' factors: {record.get('single_card_svd_iterations')}"
+                  f" / {record.get('single_card_gram_iterations')}), "
+                  f"reported residual "
+                  f"{record['reported_residual']:.3e}, float64 true "
+                  f"residual {res:.3e} (limit {limit}) [{card}]")
+        launches = {k.symbol: k.launches for k in _build.KERNELS}
+        for kernel in _build.KERNELS:
+            check(kernel.launches > 0,
+                  f"{kernel.symbol} never launched on the sharded path")
+        print(f"phase 7: sharded path launches {launches}")
+    finally:
+        dist.destroy_process_group()
+
+    # The per-shard arithmetic of four cards on this one.
+    before = {k.symbol: k.launches for k in _build.KERNELS}
+    for name in SHARDED_PRODUCTS:
+        arrays = datasets[name]
+        y = cuda(arrays["source_points"])
+        x = y if arrays["same_points"] else cuda(arrays["target_points"])
+        b = cuda(arrays["source_signal"])
+        kw = dict(kernel_name=arrays["kernel"],
+                  normalize_rows=bool(arrays["normalize_rows"]))
+        base = torch.tensor(single[name][0], device=dev)
+        truth = arrays["target_signal"]
+        for label, out in (
+                ("ring, 4 virtual ranks",
+                 sharded.virtual_ring_product(x, y, b, p=FOUR_CARDS, **kw)),
+                ("all-pairs, 2 x 2 virtual grid",
+                 sharded.virtual_allpairs_product(x, y, b, pt=2, ps=2,
+                                                  **kw))):
+            got = out.double().cpu().numpy()
+            rel = float(np.sqrt(np.mean((got - truth) ** 2))
+                        / np.sqrt(np.mean(truth ** 2)))
+            check(rel <= MAIN_PATH_BOUND["float32"],
+                  f"{label} on {name}: RMS error {rel:.3e}")
+            _, vs_single = compare(out, base)
+            check(vs_single <= KERNEL_TOL["float32"],
+                  f"{label} on {name}: {vs_single:.3e} from the single card")
+            print(f"phase 7: {label} on {name}: RMS rel error {rel:.3e}, "
+                  f"max rel diff to the single card {vs_single:.3e}")
+        del x, y, b, base
+    virtual = {k.symbol: k.launches - before[k.symbol] for k in _build.KERNELS}
+    check(all(virtual.values()), f"virtual ranks launched {virtual}")
+    print(f"phase 7: virtual-rank launches {virtual}")
+
+    # The ring chunk's kernel shapes at p = 4 (rank 1, step 0: its own
+    # source shard, so the sphere's diagonal lies in the chunk).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, which in ((PRODUCT_CUBE, "direct"), (PRODUCT_SPHERE, "direct"),
+                        (ATTENTION, "flash")):
+        arrays = datasets[name]
+        y = cuda(arrays["source_points"])
+        x = y if arrays["same_points"] else cuda(arrays["target_points"])
+        b = cuda(arrays["source_signal"])
+        n, m = len(x), len(y)
+        normalize = bool(arrays["normalize_rows"])
+        kw = dict(kernel_name=arrays["kernel"], normalize_rows=normalize)
+        me, step, owner = 1, 0, 1
+        xs = sharded.shard_rows(x, FOUR_CARDS, me, dev)
+        ys = sharded.shard_rows(y, FOUR_CARDS, owner, dev)
+        bs = sharded.shard_rows(b, FOUR_CARDS, owner, dev)
+        chunk = dict(me=me, step=step, p=FOUR_CARDS, n=n, m=m, **kw)
+        plain = dict(deferred=True, row_offset=me * len(xs),
+                     col_offset=owner * len(ys), col_limit=m, row_limit=n,
+                     **kw)
+        got = as_tuple(sharded.ring_chunk(xs, ys, bs, **chunk))
+        ref = as_tuple(kernel_matvec_torch(xs, ys, bs, **plain))
+        check(len(got) == len(ref), f"{name} chunk: state arity differs")
+        err = rel = 0.0
+        for g, r in zip(got, ref):
+            e_abs, e_rel = compare(g, r)
+            err, rel = max(err, e_abs), max(rel, e_rel)
+        check(rel <= KERNEL_TOL["float32"],
+              f"{name} ring chunk: kernel vs plain {rel:.3e}")
+        del got, ref
+        ms = time_ms(lambda: sharded.ring_chunk(xs, ys, bs, **chunk), 5)
+        plain_ms = time_ms(lambda: kernel_matvec_torch(xs, ys, bs, **plain),
+                           1)
+        library_ms = None
+        if which == "flash":
+            q, k, v = (t[None, None] for t in (xs, ys, bs))
+            library_ms = time_ms(lambda: sdpa(q, k, v, scale=1.0), 20)
+        nc, d = xs.shape
+        mc, e = bs.shape
+        bound, bound_by, engine = bound_ms(nc, mc, d, e, which, normalize,
+                                           "float32", sfu_rate)
+        print(f"phase 7: {which} kernel, ring chunk at p = 4 of {name} "
+              f"({nc} x {mc}): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({engine}), library {library_ms} ms, "
+              f"max_abs_err vs plain {err:.3e} [{card}]")
+        entries.append(dict(
+            name=which, route="cuda", source=SOURCE,
+            replaces=REPLACES[which],
+            launches=launches[getattr(_build, which.upper()).symbol],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=library_ms,
+            at=f"{name}, sharded path, ring chunk at p = 4 (rank 1, step 0)",
+            precision="float32", bound_engine=engine, kernel_device_ms=None))
+        del x, y, b, xs, ys, bs
+        torch.cuda.empty_cache()
+    print(f"phase 7: {time.perf_counter() - started:.1f} s [{card}]")
+    single_card = {name: qt for name, (_, qt) in single.items()}
+    single_card["pcg"] = pcg
+    return records, single_card
+
+
+def check_pcg_iterations(label, iterations, pcg):
+    """The sharded Nystrom PCG iterates as the single card does on the
+    same factor route ("gram"): its count lies within the single-card
+    counts over PCG_ORDERINGS orderings of the points, widened by max(3,
+    10%) (the band of tests/test_parallel.py:135-160).  One count is not
+    the reference: sharding changes the roundings, and at 131072 points
+    the count moves with them (the "gram" PCG took 121 iterations on one
+    NVIDIA H100 and 142 on four; over three draws of the test matrix 121,
+    80 and 81, nystrom_routes.py)."""
+    lo, hi = pcg["gram_spread"]
+    check(lo - max(3, 0.1 * lo) <= iterations <= hi + max(3, 0.1 * hi),
+          f"{label}: {iterations} iterations, single card on the same "
+          f"factors {lo}-{hi} over {PCG_ORDERINGS} orderings")
+
+
+def four_cards(card, single_card):
+    """Phase 8: four NCCL ranks on four cards (see the module docstring);
+    returns rank 0's records with the scaling efficiencies, or None on a
+    machine with fewer cards."""
+    count = torch.cuda.device_count()
+    if count < FOUR_CARDS:
+        print(f"phase 8: needs four cards; this machine has {count}, so "
+              f"phase 8 was not run [{card}]")
+        return None
+    started = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kmb_phase8_")
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(FOUR_CARDS):
+            log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase8-rank",
+                 str(rank), "--port", str(port), "--report",
+                 os.path.join(tmp, f"rank{rank}.json")],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + FOUR_CARD_TIMEOUT
+        for proc, _ in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            if proc.returncode != 0:
+                with open(os.path.join(tmp, f"rank{rank}.log")) as f:
+                    tail = f.read()[-6000:]
+                raise SmokeFailure(f"phase 8 rank {rank} exited with "
+                                   f"{proc.returncode}:\n{tail}")
+        reports = []
+        for rank in range(FOUR_CARDS):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                reports.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for report in reports:
+        check(all(report["launches"].values()),
+              f"phase 8 rank {report['rank']} launches {report['launches']}")
+        print(f"phase 8: rank {report['rank']} on {report['device']} "
+              f"({report['name']}): launches {report['launches']}")
+    for name, prof in reports[0]["ring_profiles"].items():
+        print(f"phase 8: rank 0, one profiled ring query of {name}: wall "
+              f"{prof['wall_ms']:.3f} ms; device ms by operation [count, "
+              f"ms]: {prof['device_ms']} [{card}, {FOUR_CARDS} cards]")
+    records = reports[0]["records"]
+    for record in records:
+        if "schedule" in record:
+            check(record["finite"], f"phase 8 {record}: not finite")
+            check(record["rms"] <= MAIN_PATH_BOUND["float32"],
+                  f"phase 8 {record['schedule']} {record['dataset']}: RMS "
+                  f"error {record['rms']:.3e}")
+            single = single_card[record["dataset"]]
+            what = f"ShardedProduct {record['schedule']}"
+        else:
+            check(record["true_residual"] <= record["limit"],
+                  f"phase 8 {record['label']}: true residual "
+                  f"{record['true_residual']:.3e}")
+            pcg = single_card["pcg"]
+            check_pcg_iterations(f"phase 8 {record['label']}",
+                                 record["iterations"], pcg)
+            single = pcg["query_s"]
+            what = (f"{record['label']} ({record['iterations']} iterations, "
+                    f"single card 'svd' / 'gram' factors "
+                    f"{pcg['iterations']} / {pcg['gram_iterations']}, 'gram' "
+                    f"over orderings {pcg['gram_spread']}; true residual "
+                    f"{record['true_residual']:.3e})")
+        check(record["ranks"] == FOUR_CARDS, f"phase 8 {record}: ranks")
+        record["single_card_query_s"] = single
+        record["efficiency"] = single / (FOUR_CARDS * record["query_s"])
+        chunks = record.get("chunk_kernels_ms")
+        print(f"phase 8: {what} on {record['dataset']}, {FOUR_CARDS} cards: "
+              f"query {record['query_s']:.6f} s, single card {single:.6f} s,"
+              f" scaling efficiency {record['efficiency']:.3f}"
+              + ("" if chunks is None else
+                 f", ring chunk kernels {chunks:.4f} ms of "
+                 f"{record['query_s'] * 1e3:.4f} ms")
+              + f" [{card}, {FOUR_CARDS} cards]")
+    print(f"phase 8: {time.perf_counter() - started:.1f} s [{card}]")
+    return records
+
+
+def ring_profile(arrays, top=6):
+    """One ring query of ShardedProduct under torch.profiler on this rank
+    (every rank runs it, after a warm-up query and a barrier): its wall
+    time and this rank's largest device times by operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmb_tpu_torch.algorithms.torch_sharded import ShardedProduct
+    from kmb_tpu_torch.parallel import multihost
+
+    algo = ShardedProduct(kernel=arrays["kernel"],
+                          dimension=arrays["source_points"].shape[1],
+                          normalize_rows=bool(arrays["normalize_rows"]))
+    algo.prepare_data(source_points=arrays["source_points"],
+                      target_points=arrays["target_points"],
+                      same_points=bool(arrays["same_points"]))
+    algo.prepare_query(source_signal=arrays["source_signal"])
+    algo.query()
+    multihost.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        algo.query()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    algo.done()
+    events = sorted(prof.key_averages(),
+                    key=lambda e: -getattr(e, "self_device_time_total", 0))
+    return {"wall_ms": wall_ms, "device_ms": {
+        e.key[:60]: [e.count, e.self_device_time_total / 1e3]
+        for e in events[:top]}}
+
+
+def four_card_rank(args):
+    """One rank of phase 8, on card `args.phase8_rank`: the sharded runs
+    through the runner, then this rank's ring chunks timed alone; writes a
+    JSON report to `args.report`."""
+    import torch.distributed as dist
+
+    from kmb_tpu_torch.ops import _build
+    from kmb_tpu_torch.parallel import multihost, sharded
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    rank = args.phase8_rank
+    multihost.initialize(f"localhost:{args.port}", num_processes=FOUR_CARDS,
+                         process_id=rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        datasets = load_datasets(SHARDED_PRODUCTS + (CUBE_131072,), {},
+                                 f"rank {rank}")
+        _build.reset_launch_counts()
+        records = []
+        for name in SHARDED_PRODUCTS:
+            arrays = datasets[name]
+            for schedule in SCHEDULES:
+                (row,) = run_on_arrays(
+                    definition("torch_sharded", "ShardedProduct", arrays,
+                               {"precision": "float32",
+                                "schedule": schedule}), arrays, runs=2)
+                records.append(dict(
+                    dataset=name, schedule=schedule,
+                    ranks=row.attrs["n_chips"],
+                    query_s=row.attrs["query_time"],
+                    rms=rms_error(row, arrays["target_signal"]),
+                    finite=bool(np.all(np.isfinite(row.result)))))
+        label, name, solver_args, query, limit = SHARDED_SOLVERS[0]
+        arrays = datasets[name]
+        (row,) = run_on_arrays(definition("torch_sharded", "ShardedSolverCG",
+                                          arrays, solver_args, query),
+                               arrays, runs=2)
+        records.append(dict(
+            label=label, dataset=name, ranks=row.attrs["n_chips"],
+            build_s=row.attrs["build_time"], query_s=row.attrs["query_time"],
+            iterations=row.attrs["cg_iterations"],
+            reported_residual=row.attrs["cg_relative_residual"],
+            true_residual=(float64_residual(arrays, row.result)
+                           if rank == 0 else None), limit=limit))
+        launches = {k.symbol: k.launches for k in _build.KERNELS}
+
+        # This rank's ring chunks, each kernel call timed alone; the
+        # slowest rank's sum beside the ring query's time.
+        for record in records:
+            if record.get("schedule") != "ring":
+                continue
+            arrays = datasets[record["dataset"]]
+            y = cuda(arrays["source_points"])
+            x = y if arrays["same_points"] else cuda(arrays["target_points"])
+            b = cuda(arrays["source_signal"])
+            kw = dict(n=len(x), m=len(y), kernel_name=arrays["kernel"],
+                      normalize_rows=bool(arrays["normalize_rows"]))
+            xs = sharded.shard_rows(x, FOUR_CARDS, rank, dev)
+            total = 0.0
+            for step in range(FOUR_CARDS):
+                owner = (rank - step) % FOUR_CARDS
+                ys = sharded.shard_rows(y, FOUR_CARDS, owner, dev)
+                bs = sharded.shard_rows(b, FOUR_CARDS, owner, dev)
+                total += time_ms(lambda: sharded.ring_chunk(
+                    xs, ys, bs, me=rank, step=step, p=FOUR_CARDS, **kw), 5)
+            record["chunk_kernels_ms"] = multihost.max_across_hosts(total)
+        # The profiler's first start on each rank comes at another time
+        # (its set-up), which the first profiled collective would wait out.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]):
+            multihost.barrier()
+        profiles = {name: ring_profile(datasets[name])
+                    for name in SHARDED_PRODUCTS}
+        multihost.barrier()
+        with open(args.report, "w") as f:
+            json.dump({"rank": rank, "device": str(dev),
+                       "name": torch.cuda.get_device_name(dev),
+                       "launches": launches, "records": records,
+                       "ring_profiles": profiles}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 if __name__ == "__main__":

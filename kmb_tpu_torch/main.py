@@ -6,6 +6,13 @@ drops those whose result files already exist, shuffles the rest and runs
 them serially in this process.  `--hardware` picks the algos.yaml tier and
 the device: GPU (the default) runs on "cuda" and raises when there is no
 CUDA device; CPU runs on "cpu", and only when asked for.
+
+Launched as several processes (torchrun, or the KMB_COORDINATOR_ADDRESS,
+KMB_NUM_PROCESSES and KMB_PROCESS_ID variables), one per card, every rank
+runs rank 0's plan in the same order, the sharded algorithms span all
+ranks, and rank 0 writes the results:
+
+    torchrun --nproc-per-node 4 -m kmb_tpu_torch --local --dataset D
 """
 
 from __future__ import annotations
@@ -17,12 +24,15 @@ import os
 import random
 import sys
 
+import torch.distributed
+
 from kmb_tpu_torch import resolve_device
 from kmb_tpu_torch.datasets import DATASETS, get_dataset
 from kmb_tpu_torch.definitions import (
     DEFAULT_DEFINITIONS, InstantiationStatus, algorithm_status,
     get_definitions, list_algorithms,
 )
+from kmb_tpu_torch.parallel import multihost
 from kmb_tpu_torch.results import get_result_filename, record_failure
 from kmb_tpu_torch.runner import run
 
@@ -166,7 +176,16 @@ def main(argv=None):
         logging.basicConfig(
             level=logging.INFO, format="%(levelname)s:%(name)s:%(message)s")
 
-    definitions = plan_experiments(args)
+    # Multi-process bring-up (a no-op unless the environment asks for it).
+    if multihost.initialize(device=device_for(args.hardware)):
+        logger.info("Multi-process: rank %d of %d.",
+                    torch.distributed.get_rank(), multihost.num_hosts())
+
+    # Every rank runs rank 0's plan (its shuffle and its view of the
+    # results already stored), in the same order: the ranks' collectives
+    # must meet.
+    definitions = multihost.broadcast_from_coordinator(
+        plan_experiments(args) if multihost.is_coordinator() else None)
     if not definitions:
         raise SystemExit("Nothing to run")
     logger.info("Order: %s", [d.algorithm for d in definitions])
@@ -182,7 +201,8 @@ def main(argv=None):
             failures += 1
             logger.exception("Experiment failed: %s on %s",
                              definition, args.dataset)
-            for qa in definition.query_argument_groups or [{}]:
+            for qa in (definition.query_argument_groups or [{}]
+                       if multihost.is_coordinator() else []):
                 record_failure(dataset=args.dataset, definition=definition,
                                query_arguments=qa,
                                reason=f"exception: {exc!r}")

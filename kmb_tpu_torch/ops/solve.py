@@ -177,8 +177,24 @@ def _read_flags(*flags):
     return torch.stack(flags).tolist()
 
 
+def _reduce(allreduce: Optional[Callable], t):
+    """`t` summed over the ranks that hold the other rows of the operands
+    (`allreduce`), or `t` itself on one device (None)."""
+    return t if allreduce is None else allreduce(t)
+
+
+def _column_sums(allreduce: Optional[Callable], *products):
+    """torch.sum(product, dim=0) of each (rows, E) product; with
+    `allreduce`, summed over every rank's rows in one collective."""
+    sums = [torch.sum(p, dim=0) for p in products]
+    if allreduce is None:
+        return sums
+    return list(allreduce(torch.stack(sums)).unbind(0))
+
+
 def _pcg(matvec: Callable, rhs, tol: float, max_iters: int,
-         precond: Optional[Callable] = None):
+         precond: Optional[Callable] = None,
+         allreduce: Optional[Callable] = None):
     """Multi-RHS preconditioned conjugate gradient.
 
     Runs all E columns jointly with per-column alpha and beta.  Stops when
@@ -188,14 +204,19 @@ def _pcg(matvec: Callable, rhs, tol: float, max_iters: int,
     ill-conditioned system reaches a rounding floor above tight
     tolerances).  Returns (best iterate, iterations, its relative
     residual, the largest over the columns).
+
+    `allreduce` (default: none, one device) sums a tensor over the ranks
+    when each rank holds some rows of rhs and of the iterates (the sharded
+    solver, parallel/sharded.py): every column dot product goes through
+    it.  The stop rule reads only such sums, so every rank takes the same
+    branch at every iteration, as the collectives inside `matvec` need.
     """
     rhs = rhs.float()
     apply_precond = (lambda v: v) if precond is None else precond
     b = torch.zeros_like(rhs)
     r = rhs
     p = apply_precond(r)
-    rz = torch.sum(r * p, dim=0)
-    rs = torch.sum(r * r, dim=0)
+    rz, rs = _column_sums(allreduce, r * p, r * r)
     rhs_sq = rs
     target_sq = (float(tol) ** 2) * rhs_sq
     best_b, best_rs = b, rs
@@ -203,16 +224,15 @@ def _pcg(matvec: Callable, rhs, tol: float, max_iters: int,
     (unmet,) = _read_flags(torch.any(rs > target_sq))
     while it < max_iters and stall < PCG_STALL_WINDOW and unmet:
         kp = matvec(p)
-        denom = torch.sum(p * kp, dim=0)
+        (denom,) = _column_sums(allreduce, p * kp)
         alpha = torch.where(denom != 0.0, rz / denom, 0.0)
         b = b + alpha * p
         r = r - alpha * kp
         z = apply_precond(r)
-        rz_new = torch.sum(r * z, dim=0)
+        rz_new, rs = _column_sums(allreduce, r * z, r * r)
         beta = torch.where(rz != 0.0, rz_new / rz, 0.0)
         p = z + beta * p
         rz = rz_new
-        rs = torch.sum(r * r, dim=0)
         improved = rs < best_rs
         best_b = torch.where(improved[None, :], b, best_b)
         best_rs = torch.minimum(rs, best_rs)
@@ -232,7 +252,8 @@ def _beta_sq(value):
 
 
 def _minres(matvec: Callable, rhs, tol: float, max_iters: int,
-            precond: Optional[Callable] = None):
+            precond: Optional[Callable] = None,
+            allreduce: Optional[Callable] = None):
     """Multi-RHS (preconditioned) Paige-Saunders MINRES.
 
     The structure of SciPy's `minres`, with per-column Lanczos and Givens
@@ -242,12 +263,13 @@ def _minres(matvec: Callable, rhs, tol: float, max_iters: int,
     to the right-hand side's; the loop has the stall window and returns
     the best iterate, as `_pcg` does.  The reported relative residual
     comes from one true-residual matvec at the end (plain 2-norm), since
-    `phibar` can drift in float32.
+    `phibar` can drift in float32.  `allreduce` is `_pcg`'s.
     """
     rhs = rhs.float()
     psolve = (lambda v: v) if precond is None else precond
     y = psolve(rhs)
-    beta1_sq = _beta_sq(torch.sum(rhs * y, dim=0))
+    (rhs_y,) = _column_sums(allreduce, rhs * y)
+    beta1_sq = _beta_sq(rhs_y)
     beta1 = torch.sqrt(beta1_sq)
     target_sq = (float(tol) ** 2) * beta1_sq
     zeros = torch.zeros_like(rhs)
@@ -267,12 +289,13 @@ def _minres(matvec: Callable, rhs, tol: float, max_iters: int,
         if it >= 1:
             oldb_safe = torch.where(oldb > 0.0, oldb, 1.0)
             p = p - (beta / oldb_safe)[None, :] * r1
-        alfa = torch.sum(v * p, dim=0)
+        (alfa,) = _column_sums(allreduce, v * p)
         p = p - (alfa / beta_safe)[None, :] * r2
         r1, r2 = r2, p
         y = psolve(r2)
         oldb = beta
-        beta = torch.sqrt(_beta_sq(torch.sum(r2 * y, dim=0)))
+        (r2_y,) = _column_sums(allreduce, r2 * y)
+        beta = torch.sqrt(_beta_sq(r2_y))
         # The two previous Givens rotations on the new tridiagonal column,
         # then the new rotation that annihilates beta.
         oldeps = epsln
@@ -297,8 +320,7 @@ def _minres(matvec: Callable, rhs, tol: float, max_iters: int,
                                         torch.any(rs > target_sq))
         stall = 0 if any_improved else stall + 1
     true_r = rhs - matvec(best_x)
-    res_sq = torch.sum(true_r * true_r, dim=0)
-    rhs2 = torch.sum(rhs * rhs, dim=0)
+    res_sq, rhs2 = _column_sums(allreduce, true_r * true_r, rhs * rhs)
     rel = torch.sqrt(torch.max(res_sq / torch.clamp_min(rhs2, 1e-30)))
     return best_x, it, float(rel)
 
@@ -384,29 +406,56 @@ def block_jacobi_precond_from_arrays(v, winv, gather, out_pos, *, device):
                              as_index(out_pos))
 
 
-def nystrom_factors(matvec: Callable, omega, *, method: str = "svd"):
+def nystrom_factors(matvec: Callable, omega, *, method: str = "svd",
+                    m: Optional[int] = None,
+                    allreduce: Optional[Callable] = None):
     """Randomised Nystrom factors (U, lam) of an SPD operator from the
     Gaussian test matrix `omega` (m, rank).
 
     The shift-stabilised algorithm of Frangella, Tropp and Udell
     ("Randomized Nystrom Preconditioning", 2021).  The sketch K @ omega is
     one call of `matvec` with E = rank.  method="svd" orthonormalises
-    omega by QR first and takes U from a tall SVD; method="gram" uses only
-    (rank, rank) Gram eigendecompositions and tall-skinny matmuls (the
-    route of the JAX package's sharded solver).  Returns U (m, rank)
-    orthonormal and lam (rank,) >= 0, descending.
+    omega by QR first and takes U from a tall SVD.  method="gram" uses only
+    (rank, rank) Grams and tall-skinny matmuls (the route of the JAX
+    package's sharded solver): omega is orthonormalised by a Cholesky QR,
+    and U comes from the eigendecompositions of the sketch's Grams.  Those
+    run in float64: each Gram squares a condition number that float32
+    does not resolve (`nystrom_routes.py` on an H100: on the 131072-point
+    solver cube, Nystrom PCG at rank 256 took 165 iterations on float32
+    Grams without the QR, 121 with both, beside 142 on the "svd" route).  Returns U (m, rank) orthonormal and
+    lam (rank,) >= 0, descending, in float32.
+
+    Sharded (method "gram" only): each rank passes its rows of omega, a
+    `matvec` that returns its rows of K @ omega, the global row count `m`
+    and `_pcg`'s `allreduce`; the sketch's norm and the Grams are summed
+    over the ranks, and each rank gets its rows of U.
     """
     _check_choice("method", method, NYSTROM_METHODS)
+    if allreduce is not None and method != "gram":
+        raise ValueError("a sharded Nystrom build takes method='gram'")
     omega = omega.float()
-    m = omega.shape[0]
+    if m is None:
+        m = omega.shape[0]
     with highest_precision():
         if method == "svd":
             omega, _ = torch.linalg.qr(omega)
+        else:
+            omega64 = omega.double()
+            r = torch.linalg.cholesky(
+                _reduce(allreduce, omega64.T @ omega64), upper=True)
+            omega = torch.linalg.solve_triangular(
+                r, omega64, upper=True, left=False).float()
         sketch = matvec(omega.contiguous())                # K @ omega
         # Stabilising shift at the float32 noise scale of the sketch.
-        nu = math.sqrt(m) * _EPS * torch.linalg.norm(sketch)
+        if allreduce is None:
+            norm = torch.linalg.norm(sketch)
+        else:
+            norm = torch.sqrt(allreduce(torch.sum(sketch * sketch)[None]))[0]
+        nu = math.sqrt(m) * _EPS * norm
         sketch_nu = sketch + nu * omega
-        gram = omega.T @ sketch_nu
+        if method == "gram":
+            sketch_nu, omega = sketch_nu.double(), omega.double()
+        gram = _reduce(allreduce, omega.T @ sketch_nu)
         gram = 0.5 * (gram + gram.T)
         # eigh-based inverse square root instead of Cholesky: tolerates
         # the residual indefiniteness a float32 Gram can carry.
@@ -417,14 +466,15 @@ def nystrom_factors(matvec: Callable, omega, *, method: str = "svd"):
             u, s, _ = torch.linalg.svd(half, full_matrices=False)
             return u, torch.clamp_min(s * s - nu, 0.0)
         # half = U diag(s) V^T  =>  half^T half = V s^2 V^T.
-        g2 = half.T @ half
+        g2 = _reduce(allreduce, half.T @ half)
         g2 = 0.5 * (g2 + g2.T)
         s2, v2 = torch.linalg.eigh(g2)                     # ascending
         # Clamped relative to the spectrum: an eigenvalue at numerical
         # zero under an absolute floor would give U a garbage column.
         s2 = torch.maximum(s2, torch.clamp_min(_EPS * s2[-1], _TINY))
         u = half @ (v2 / torch.sqrt(s2)[None, :])
-        return u.flip(1), torch.clamp_min(s2.flip(0) - nu, 0.0)
+        return (u.flip(1).float(),
+                torch.clamp_min(s2.flip(0) - nu, 0.0).float())
 
 
 def nystrom_preconditioner(matvec: Callable, m: int, rank: int, *, device,
@@ -439,19 +489,20 @@ def nystrom_preconditioner(matvec: Callable, m: int, rank: int, *, device,
     return nystrom_factors(matvec, omega, method=method)
 
 
-def apply_nystrom_precond(u, lam, v):
+def apply_nystrom_precond(u, lam, v, allreduce: Optional[Callable] = None):
     """P^-1 v for P = U diag(max(lam, floor)) U^T + floor (I - U U^T).
 
     The floor is max(lam_r, NYSTROM_REL_FLOOR * lam_0): below it
     (spectra that decay past float32 resolution, as Gaussian kernels' do)
     the preconditioner smoothly becomes the identity instead of dividing
-    by near-zero eigenvalues.
+    by near-zero eigenvalues.  Sharded: each rank passes its rows of u and
+    v, and U^T v is summed over the ranks by `allreduce` (`_pcg`'s).
     """
     lam_r = torch.clamp_min(
         torch.maximum(lam[-1], NYSTROM_REL_FLOOR * lam[0]), _TINY)
     lam_safe = torch.maximum(lam, lam_r)
     with highest_precision():
-        utv = u.T @ v
+        utv = _reduce(allreduce, u.T @ v)
         return u @ ((lam_r / lam_safe)[:, None] * utv) + (v - u @ utv)
 
 

@@ -492,3 +492,133 @@ def test_streamed_random_features_match_materialised(kernel, cuda_points):
     assert got.is_cuda
     # tests/test_lowrank.py:237's 2e-5, of the largest output.
     _close(got, want, 2e-5)
+
+
+# -- the sharded engines' per-shard arithmetic, on one card --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ALL_KERNELS)
+@pytest.mark.parametrize("d", [3, 64])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_ring_chunks_at_four_virtual_ranks_match_plain_version(
+        kernel, d, normalize, cuda_points):
+    # Ragged N and M (padded shards, limits inside the last shard), column
+    # offsets on every chunk; for the singular kernel also the same points,
+    # its diagonal masked at global positions.  (At the same points the
+    # other kernels take a zero distance from a cancelled form: at D = 64
+    # the float32 plain version alone is 1.3e-4 off float64 for the
+    # absolute-exponential's square root, beyond the 1e-4 held here.)
+    from kmb_tpu_torch.parallel import sharded
+
+    x, y, b = cuda_points(1037, 1511, d, 3)
+    kw = dict(kernel_name=kernel, normalize_rows=normalize)
+    before = _build.DIRECT.launches + _build.FLASH.launches
+    got = sharded.virtual_ring_product(x, y, b, p=4, **kw)
+    assert _build.DIRECT.launches + _build.FLASH.launches - before >= 16
+    _close(got, kernel_matvec_torch(x, y, b, **kw))
+    if kernel == "inverse-distance":
+        same = sharded.virtual_ring_product(y, y, b, p=4, **kw)
+        _close(same, kernel_matvec_torch(y, y, b, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gaussian", "inverse-distance",
+                                    "exponential"])
+def test_ring_chunk_states_match_plain_version(kernel, cuda_points):
+    # Each chunk's deferred state, kernel against plain version, at the
+    # offsets and limits ring step `step` of rank `me` gives it.
+    from kmb_tpu_torch.parallel import sharded
+
+    x, y, b = cuda_points(1037, 1511, 64, 2)
+    normalize = kernel != "inverse-distance"
+    for me, step in ((0, 0), (1, 2), (3, 1)):
+        owner = (me - step) % 4
+        xs = sharded.shard_rows(x, 4, me, x.device)
+        ys = sharded.shard_rows(y, 4, owner, x.device)
+        bs = sharded.shard_rows(b, 4, owner, x.device)
+        kw = dict(me=me, step=step, p=4, n=len(x), m=len(y),
+                  kernel_name=kernel, normalize_rows=normalize)
+        got = sharded.ring_chunk(xs, ys, bs, **kw)
+        want = kernel_matvec_torch(
+            xs, ys, bs, kernel_name=kernel, normalize_rows=normalize,
+            deferred=True, row_offset=me * len(xs),
+            col_offset=owner * len(ys), col_limit=len(y), row_limit=len(x))
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+                continue
+            # -1e30 marks rows with no valid column (padding): exact.
+            sentinel = w <= -1e29
+            assert torch.equal(g <= -1e29, sentinel)
+            _close(torch.where(sentinel, 0.0, g), torch.where(sentinel, 0.0, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gaussian", "inverse-distance",
+                                    "exponential"])
+def test_allpairs_blocks_on_a_virtual_grid_match_plain_version(kernel,
+                                                               cuda_points):
+    from kmb_tpu_torch.parallel import sharded
+
+    x, y, b = cuda_points(1037, 1511, 3, 2)
+    kw = dict(kernel_name=kernel, normalize_rows=kernel == "exponential")
+    _close(sharded.virtual_allpairs_product(x, y, b, pt=2, ps=2, **kw),
+           kernel_matvec_torch(x, y, b, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["_pcg", "_minres"])
+def test_allreduce_hook_default_is_bit_identical_on_the_card(loop,
+                                                            solver_problem):
+    # The hook's default (no collective) and an explicit identity, which
+    # takes the batched path (stacked sums, unbound), give the same bits.
+    name = ("solver-cube-D3-E1-M2000-N2000-gaussian" if loop == "_pcg"
+            else "solver-sphere-D3-E1-M2000-N2000-inverse-distance")
+    kernel, y, rhs = solver_problem(name)
+
+    def matvec(v):
+        return kernel_matvec(y, y, v, kernel_name=kernel)
+
+    fn = getattr(solve, loop)
+    b0, it0, res0 = fn(matvec, rhs, 1e-6, 300)
+    b1, it1, res1 = fn(matvec, rhs, 1e-6, 300, allreduce=lambda t: t)
+    assert it0 == it1 > 0 and res0 == res1
+    assert torch.equal(b0, b1)
+
+
+@pytest.fixture
+def nccl_world_of_one(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs only there")
+    import torch.distributed as dist
+
+    from kmb_tpu_torch.parallel import multihost
+
+    assert multihost.initialize(f"file://{tmp_path}/store", num_processes=1,
+                                process_id=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "solver-cube-D3-E1-M2000-N2000-gaussian",
+    "solver-sphere-D3-E1-M2000-N2000-inverse-distance"])
+def test_sharded_solve_in_an_nccl_world_of_one_is_bit_identical(
+        name, solver_problem, nccl_world_of_one):
+    # Every dot product through a real NCCL all-reduce of one rank, and the
+    # ring matvec at p = 1: the single-card solve, bit for bit (M = 2000 is
+    # a multiple of 8, so no padding).
+    from kmb_tpu_torch.parallel import sharded
+
+    kernel, y, rhs = solver_problem(name)
+    mesh = sharded.make_mesh()
+    assert mesh.distributed and mesh.device.type == "cuda"
+    got, it, res = sharded.sharded_cg_solve(
+        y, rhs, mesh=mesh, kernel_name=kernel, tol=1e-6, max_iters=300)
+    want, want_it, want_res = solve.cg_solve(y, rhs, kernel_name=kernel,
+                                             tol=1e-6, max_iters=300)
+    assert it == want_it > 0 and res == want_res
+    assert torch.equal(got, want)

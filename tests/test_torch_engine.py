@@ -198,6 +198,9 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
                    "kmb_tpu_torch.ops.blr", "kmb_tpu_torch.ops.lowrank",
                    "kmb_tpu_torch.algorithms.torch_engine",
                    "kmb_tpu_torch.algorithms.torch_approx",
+                   "kmb_tpu_torch.parallel.multihost",
+                   "kmb_tpu_torch.parallel.sharded",
+                   "kmb_tpu_torch.algorithms.torch_sharded",
                    "kmb_tpu_torch.__main__"):
         assert module in report["modules"]
     loaded = report["loaded"]
