@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card (sm_90a):
 
 `--phases 7,8` (any comma-separated subset; default all) runs only those
 phases: phase 1 always runs, phase 8 brings phase 7 (its single-card
-baselines), and a phase makes the datasets and truths it needs when the
+baselines), phase 10 brings phase 8 (its processes), and a phase makes the datasets and truths it needs when the
 phase that makes them is not run.
 
 Phases, each of which must pass:
@@ -74,13 +74,33 @@ Phases, each of which must pass:
    beside the single-card time of phase 7, the scaling efficiency
    (single-card time / (4 x sharded time)) and, for the ring, the sum of
    its chunk kernels' times (CUDA events, the slowest rank's).
+9. The harness around the engines on one card, in a process of its own
+   (torch.profiler's CUDA records go missing in a process that has
+   launched many kernels since its last profiling session, as this one
+   has after phase 5): the runner's torch.profiler hook (KMB_PROFILE_DIR)
+   on TorchProduct float32 through `run_on_arrays` (runs=2) on the cube
+   and attention, after the same run without it: one Chrome trace per
+   query group,
+   from the last repetition, whose kernel events name the instantiations
+   of phase 1's ptxas report and number the launches of that repetition;
+   the native float64 oracle (built from native/kmb_native.cpp) through
+   `run_on_arrays` on three 10^4-point datasets against the float64 plain
+   product on the card; and `kmb_tpu_torch.scaling.measure` at p = 1 on
+   2^20 points (1.1e12 pairs) against a float64 plain product on a subset
+   of the target rows, with that shape's kernel call held against the
+   plain version and timed.
+10. The device-count sweep on four cards (with phase 8's per-card
+   processes; otherwise a line says it was not run): `scaling.measure`
+   over meshes of 1, 2 and 4 cards at 131072^2 and 2^20, each answer held
+   against the single card's, printed beside phase 8's ring efficiency.
 
 The last line is {"ok": true, "device": {...}} and is printed only when
 every phase passed; the line before it holds the kernels' numbers, one
 entry per kernel, dataset and tier, and the lines before that the sharded
 runs', the solver runs' and the approximate runs'.  Nothing is written
 outside the git-ignored kernel build directory and the system's temporary
-directory (phase 8's rank reports, removed at the end).
+directory (phase 8's rank reports and phase 9's traces, removed at the
+end).
 """
 
 from __future__ import annotations
@@ -94,6 +114,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -269,6 +290,29 @@ FOUR_CARDS = 4
 PCG_ORDERINGS = 4   # orderings of the points for the single-card PCG spread
 FOUR_CARD_TIMEOUT = 600   # seconds for phase 8's ranks, start to report
 
+# Phase 9: the runner's profiler hook on TorchProduct float32, by dataset:
+# the instantiation its kernel events must name (as MAIN_PATH_KERNELS).
+PROFILED = ((PRODUCT_CUBE, ("small_d_kernel", "0,3,1,0,0,0")),
+            (ATTENTION, ("large_d_kernel", "3,8,1,0,0")))
+# The native oracle against the float64 plain product on the card,
+# relative to the largest output: two float64 summation orders over 10^4
+# sources and -ffast-math's vector exp (about 4 ulp) differ by more than
+# tests/test_native.py's 1e-12 at 257 sources.
+NATIVE_DATASETS = ("product-cube-D3-E1-M10000-N10000-gaussian",
+                   "product-sphere-D3-E1-M10000-N10000-inverse-distance",
+                   ATTENTION)
+NATIVE_TOL = 1e-10
+# The sweep (phases 9-10): the JAX package's north-star size, and the
+# phase-8 size; answers held at 1e-4 RMS relative (float32 sums), at p = 1
+# against float64 on the first SWEEP_CHECK_ROWS target rows.
+SWEEP_N = 2**20
+SWEEP_SIZES = (131072, SWEEP_N)
+SWEEP_COUNTS = (1, 2, 4)
+SWEEP_RUNS = 3
+SWEEP_TOL = 1e-4
+SWEEP_CHECK_ROWS = 4096
+PHASE9_TIMEOUT = 900   # seconds for phase 9's process, start to report
+
 REPLACES = {
     "direct": "kmb_tpu/ops/product.py:230 (_direct_kernel_body, "
               "pallas_call at :638)",
@@ -388,6 +432,12 @@ def bound_ms(n, m, d, e, which, normalize, tier, sfu_rate):
             else "operations", engine)
 
 
+def special_function_rate(props, max_clock_mhz):
+    """Special-function ops per second of the card at its maximum clock."""
+    return (SFU_PER_CLOCK_PER_SM * props.multi_processor_count
+            * max_clock_mhz * 1e6)
+
+
 def cuda(a):
     """A float32 copy of `a` on the card."""
     return torch.tensor(np.asarray(a, np.float32), device="cuda")
@@ -453,8 +503,13 @@ def parse_args(argv):
     parser.add_argument(
         "--phases", default="all",
         help="comma-separated phases to run, e.g. 7,8 (default: all)")
-    # Phase 8 starts this script once per card with these.
+    # Phase 8 starts this script once per card with these (and --sweep
+    # for phase 10).
     parser.add_argument("--phase8-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--sweep", action="store_true",
+                        help=argparse.SUPPRESS)
+    # Phase 9 runs in a process of its own, started with this.
+    parser.add_argument("--phase9-report", help=argparse.SUPPRESS)
     parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--report", help=argparse.SUPPRESS)
     return parser.parse_args(argv)
@@ -462,13 +517,15 @@ def parse_args(argv):
 
 def selected_phases(spec):
     """The phases to run: phase 1 always; 4 brings 3 (its launch counts),
-    8 brings 7 (its single-card baselines)."""
+    10 brings 8 (its processes), 8 brings 7 (its single-card baselines)."""
     if spec == "all":
-        return set(range(1, 9))
+        return set(range(1, 11))
     phases = {int(p) for p in spec.split(",")} | {1}
-    check(phases <= set(range(1, 9)), f"no such phase in {spec!r}")
+    check(phases <= set(range(1, 11)), f"no such phase in {spec!r}")
     if 4 in phases:
         phases.add(3)
+    if 10 in phases:
+        phases.add(8)
     if 8 in phases:
         phases.add(7)
     return phases
@@ -483,6 +540,8 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if options.phase8_rank is not None:
         return four_card_rank(options)
+    if options.phase9_report is not None:
+        return harness_process(options.phase9_report)
     phases = selected_phases(options.phases)
     from kmb_tpu_torch.ops import _build
 
@@ -516,12 +575,11 @@ def main(argv=None):
         check(len(found) == 1, f"{kind}<{args}> not in the build")
         print(f"phase 1: {kind}<{args}> ({what}): {found[0][0]} registers, "
               f"{found[0][1]} bytes spilled")
-    sfu_rate = (SFU_PER_CLOCK_PER_SM * props.multi_processor_count
-                * max_clock_mhz * 1e6)
+    sfu_rate = special_function_rate(props, max_clock_mhz)
     print(f"phases {sorted(phases)} [{card}]")
 
     entries, datasets, per_run = [], {}, {}
-    solvers = approx = sharded = four = None
+    solvers = approx = sharded = four = harness = None
     if 2 in phases:
         kernels_vs_plain(dev)
     if 3 in phases:
@@ -540,13 +598,16 @@ def main(argv=None):
             dev, card, sfu_rate, entries,
             load_datasets(SHARDED_DATASETS, datasets, card), solvers)
     if 8 in phases:
-        four = four_cards(card, single_card)
+        four = four_cards(card, single_card, sweep=10 in phases)
+    if 9 in phases:
+        harness = harness_phase(card, entries)
 
     if phases & {4, 7}:
         check({entry["name"] for entry in entries} == {"direct", "flash"},
               "a kernel was not timed")
     for key, records in (("approx", approx), ("solvers", solvers),
-                         ("sharded", sharded), ("four_cards", four)):
+                         ("sharded", sharded), ("four_cards", four),
+                         ("harness", harness)):
         if records is not None:
             print(json.dumps({key: records}))
     print(card)
@@ -1447,6 +1508,8 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
               f"{name} ring chunk: kernel vs plain {rel:.3e}")
         del got, ref
         ms = time_ms(lambda: sharded.ring_chunk(xs, ys, bs, **chunk), 5)
+        device_ms = kernel_device_ms(
+            lambda: sharded.ring_chunk(xs, ys, bs, **chunk))
         plain_ms = time_ms(lambda: kernel_matvec_torch(xs, ys, bs, **plain),
                            1)
         library_ms = None
@@ -1458,7 +1521,8 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
         bound, bound_by, engine = bound_ms(nc, mc, d, e, which, normalize,
                                            "float32", sfu_rate)
         print(f"phase 7: {which} kernel, ring chunk at p = 4 of {name} "
-              f"({nc} x {mc}): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"({nc} x {mc}): {ms:.4f} ms (kernel alone {device_ms} ms), "
+              f"plain {plain_ms:.4f} ms, bound "
               f"{bound:.4f} ms ({engine}), library {library_ms} ms, "
               f"max_abs_err vs plain {err:.3e} [{card}]")
         entries.append(dict(
@@ -1468,7 +1532,8 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=library_ms,
             at=f"{name}, sharded path, ring chunk at p = 4 (rank 1, step 0)",
-            precision="float32", bound_engine=engine, kernel_device_ms=None))
+            precision="float32", bound_engine=engine,
+            kernel_device_ms=device_ms))
         del x, y, b, xs, ys, bs
         torch.cuda.empty_cache()
     print(f"phase 7: {time.perf_counter() - started:.1f} s [{card}]")
@@ -1492,14 +1557,18 @@ def check_pcg_iterations(label, iterations, pcg):
           f"factors {lo}-{hi} over {PCG_ORDERINGS} orderings")
 
 
-def four_cards(card, single_card):
-    """Phase 8: four NCCL ranks on four cards (see the module docstring);
-    returns rank 0's records with the scaling efficiencies, or None on a
-    machine with fewer cards."""
+def four_cards(card, single_card, sweep=False):
+    """Phase 8, and with `sweep` phase 10: four NCCL ranks on four cards
+    (see the module docstring); returns rank 0's records with the scaling
+    efficiencies (and the sweep's rows), or None on a machine with fewer
+    cards."""
     count = torch.cuda.device_count()
     if count < FOUR_CARDS:
         print(f"phase 8: needs four cards; this machine has {count}, so "
               f"phase 8 was not run [{card}]")
+        if sweep:
+            print(f"phase 10: needs four cards; this machine has {count}, "
+                  f"so phase 10 was not run [{card}]")
         return None
     started = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="kmb_phase8_")
@@ -1511,7 +1580,8 @@ def four_cards(card, single_card):
             procs.append((subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--phase8-rank",
                  str(rank), "--port", str(port), "--report",
-                 os.path.join(tmp, f"rank{rank}.json")],
+                 os.path.join(tmp, f"rank{rank}.json")]
+                + (["--sweep"] if sweep else []),
                 cwd=os.path.dirname(os.path.abspath(__file__)),
                 stdout=log, stderr=subprocess.STDOUT), log))
         deadline = time.monotonic() + FOUR_CARD_TIMEOUT
@@ -1583,7 +1653,46 @@ def four_cards(card, single_card):
                  f"{record['query_s'] * 1e3:.4f} ms")
               + f" [{card}, {FOUR_CARDS} cards]")
     print(f"phase 8: {time.perf_counter() - started:.1f} s [{card}]")
+    if sweep:
+        ring = next(r for r in records if r.get("schedule") == "ring"
+                    and r["dataset"] == PRODUCT_CUBE)
+        records.append({"sweep": four_card_sweep(card, reports, ring)})
     return records
+
+
+def four_card_sweep(card, reports, ring):
+    """Phase 10's checks and lines from the ranks' reports."""
+    from kmb_tpu_torch.ops import _build
+
+    sweeps = reports[0]["sweep"]
+    for report in reports:
+        # Every rank holds the slowest rank's rows, and every rank is in
+        # the four-card mesh.
+        check([s["rows"] for s in report["sweep"]]
+              == [s["rows"] for s in sweeps], "phase 10: ranks' rows differ")
+        launches = report["sweep_launches"]
+        check(launches[_build.DIRECT.symbol] > 0,
+              f"phase 10 rank {report['rank']}: launches {launches}")
+        print(f"phase 10: rank {report['rank']} launches {launches} "
+              f"[{card}, {FOUR_CARDS} cards]")
+    for sweep in sweeps:
+        n = sweep["n"]
+        check([row["devices"] for row in sweep["rows"]]
+              == list(SWEEP_COUNTS), f"phase 10 at {n}: rows {sweep}")
+        check(sweep["rows"][0]["efficiency"] == 1.0,
+              f"phase 10 at {n}: p = 1 efficiency "
+              f"{sweep['rows'][0]['efficiency']}")
+        for row, rel in zip(sweep["rows"], sweep["rms_vs_one_card"]):
+            check(rel <= SWEEP_TOL, f"phase 10 at {n}, p = "
+                  f"{row['devices']}: {rel:.3e} from the single card")
+            print(f"phase 10: N = M = {n}: {json.dumps(row)}, RMS rel "
+                  f"diff to p = 1 {rel:.3e} [{card}, {FOUR_CARDS} cards]")
+        print(f"phase 10: N = M = {n}: efficiency at p = 2, 4 "
+              + ", ".join(f"{row['efficiency']:.3f}"
+                          for row in sweep["rows"][1:])
+              + f"; phase 8's ring (runner, {PRODUCT_CUBE}) "
+              f"{ring['efficiency']:.3f} [{card}, {FOUR_CARDS} cards]")
+    return sweeps
 
 
 def ring_profile(arrays, top=6):
@@ -1691,14 +1800,353 @@ def four_card_rank(args):
         profiles = {name: ring_profile(datasets[name])
                     for name in SHARDED_PRODUCTS}
         multihost.barrier()
+        report = {"rank": rank, "device": str(dev),
+                  "name": torch.cuda.get_device_name(dev),
+                  "launches": launches, "records": records,
+                  "ring_profiles": profiles}
+        if args.sweep:   # phase 10
+            del datasets
+            torch.cuda.empty_cache()
+            report["sweep"], report["sweep_launches"] = sweep_on_ranks(
+                rank)
         with open(args.report, "w") as f:
-            json.dump({"rank": rank, "device": str(dev),
-                       "name": torch.cuda.get_device_name(dev),
-                       "launches": launches, "records": records,
-                       "ring_profiles": profiles}, f)
+            json.dump(report, f)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def instantiation(name):
+    """(template, arguments as phase 1's ptxas report lists them) of a
+    kernel event's name, demangled ("small_d_kernel<0, 3, 1, false, ...>")
+    or mangled; None for another kernel."""
+    kind = re.search(r"(small_d_kernel|large_d_kernel)", name)
+    if kind is None:
+        return None
+    demangled = re.search(kind.group(1) + r"<([^>]*)>", name)
+    if demangled:
+        tokens = re.findall(r"\b(\d+|true|false)\b", demangled.group(1))
+        args = [{"true": "1", "false": "0"}.get(t, t) for t in tokens]
+    else:
+        args = re.findall(r"L[ib](\d+)E", name)
+    return kind.group(1), ",".join(args)
+
+
+def profiled_runs(card, built, datasets):
+    """Phase 9's profiler hook: TorchProduct float32 through the runner
+    with KMB_PROFILE_DIR set, then the same run without it; returns one
+    record per dataset."""
+    from kmb_tpu_torch.algorithms.torch_engine import TorchProduct
+    from kmb_tpu_torch.ops import _build
+    from kmb_tpu_torch.runner import TRACE_FILE, run_on_arrays
+
+    # Each query's launches and time (the last repetition is the traced
+    # one); the runner's own rows give the best times.
+    queries = []
+    query = TorchProduct.query
+
+    def counted(self):
+        before = sum(k.launches for k in _build.KERNELS)
+        t0 = time.perf_counter()
+        query(self)
+        queries.append((sum(k.launches for k in _build.KERNELS) - before,
+                        time.perf_counter() - t0))
+
+    root = tempfile.mkdtemp(prefix="kmb_phase9_")
+    records = []
+    TorchProduct.query = counted
+    try:
+        for name, expected in PROFILED:
+            arrays = datasets[name]
+            run = definition("torch_engine", "TorchProduct", arrays,
+                             {"precision": "float32"})
+            # The run without the hook first: both runs then start warm.
+            queries.clear()
+            (plain_row,) = run_on_arrays(run, arrays, runs=2)
+            untraced = [q for _, q in queries]
+            os.environ["KMB_PROFILE_DIR"] = root
+            queries.clear()
+            try:
+                (row,) = run_on_arrays(run, arrays, runs=2)
+            finally:
+                del os.environ["KMB_PROFILE_DIR"]
+            traced_launches, traced_s = queries[-1]
+            traced = [q for _, q in queries]
+            truth = arrays["target_signal"]
+            for label, r in (("with the hook", row), ("without", plain_row)):
+                rel = rms_error(r, truth)
+                check(np.all(np.isfinite(r.result))
+                      and rel <= MAIN_PATH_BOUND["float32"],
+                      f"phase 9 {name} {label}: RMS error {rel:.3e}")
+            check("profile_trace" not in plain_row.attrs,
+                  f"phase 9 {name}: a trace without KMB_PROFILE_DIR")
+            trace_dir = row.attrs.get("profile_trace")
+            check(trace_dir is not None and trace_dir.startswith(root),
+                  f"phase 9 {name}: profile_trace {trace_dir!r}")
+            files = sorted(os.path.join(d, f) for d, _, names in
+                           os.walk(root) for f in names)
+            check(files == [os.path.join(trace_dir, TRACE_FILE)],
+                  f"phase 9 {name}: trace files {files}")
+            with open(files[0]) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            ours = [e["name"] for e in kernels
+                    if instantiation(e.get("name", "")) is not None]
+            check(ours, f"phase 9 {name}: no CUDA kernel of ours in the "
+                  f"trace ({len(kernels)} kernel events, "
+                  f"{len(events)} events)")
+            found = {instantiation(k) for k in ours}
+            check(found == {expected} and found <= built,
+                  f"phase 9 {name}: traced {sorted(found)}, expected "
+                  f"{expected}; names {sorted(set(ours))[:4]}")
+            check(len(ours) == traced_launches,
+                  f"phase 9 {name}: {len(ours)} kernel events, "
+                  f"{traced_launches} launches in the traced repetition")
+            shutil.rmtree(trace_dir)
+            record = dict(
+                dataset=name, instantiation=f"{expected[0]}<{expected[1]}>",
+                traced_kernel_events=len(ours),
+                traced_launches=traced_launches,
+                kernel_event_names=sorted(set(ours)),
+                repetitions_s_with_hook=traced,
+                repetitions_s_without=untraced,
+                query_s_with_hook=row.attrs["query_time"],
+                query_s_without=plain_row.attrs["query_time"])
+            records.append(record)
+            print(f"phase 9: profiled TorchProduct float32 on {name}: one "
+                  f"trace, {len(ours)} {expected[0]}<{expected[1]}> events "
+                  f"= {traced_launches} launches of the traced repetition; "
+                  f"best query {row.attrs['query_time'] * 1e3:.4f} ms with "
+                  f"the hook, {plain_row.attrs['query_time'] * 1e3:.4f} ms "
+                  f"without; repetitions (ms) with the hook "
+                  f"{[round(t * 1e3, 4) for t in traced]} (the last under "
+                  f"the profiler), without "
+                  f"{[round(t * 1e3, 4) for t in untraced]} [{card}]")
+    finally:
+        TorchProduct.query = query
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), "phase 9: trace directory left behind")
+    return records
+
+
+def native_runs(card, datasets):
+    """Phase 9's native oracle: its build, then NativeProduct through the
+    runner against the float64 plain product on the card."""
+    from kmb_tpu_torch import native
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    t0 = time.perf_counter()
+    library = native.build()
+    build_s = time.perf_counter() - t0
+    threads = native.num_threads()
+    print(f"phase 9: native oracle {library.name} built in {build_s:.2f} s "
+          f"({threads} OpenMP threads) [{card}]")
+    records = []
+    for name in NATIVE_DATASETS:
+        arrays = datasets[name]
+        (row,) = run_on_arrays(definition("native_oracle", "NativeProduct",
+                                          arrays, {}), arrays, runs=2)
+        truth = arrays["target_signal"]
+        check(np.all(np.isfinite(row.result))
+              and row.result.shape == truth.shape,
+              f"phase 9 native {name}: not finite or misshapen")
+        diff = float(np.abs(row.result - truth).max())
+        rel = diff / float(np.abs(truth).max())
+        check(rel <= NATIVE_TOL,
+              f"phase 9 native {name}: {rel:.3e} of the largest output")
+        y = torch.tensor(arrays["source_points"], device="cuda")
+        x = y if arrays["same_points"] else torch.tensor(
+            arrays["target_points"], device="cuda")
+        b = torch.tensor(arrays["source_signal"], device="cuda")
+        plain_ms = time_ms(lambda: kernel_matvec_torch(
+            x, y, b, kernel_name=arrays["kernel"],
+            normalize_rows=bool(arrays["normalize_rows"])), 2)
+        del x, y, b
+        records.append(dict(dataset=name, threads=threads,
+                            build_s=build_s,
+                            query_s=row.attrs["query_time"],
+                            card_float64_plain_ms=plain_ms,
+                            max_abs_diff=diff, rel_to_largest=rel))
+        print(f"phase 9: NativeProduct on {name}: query "
+              f"{row.attrs['query_time']:.4f} s on {threads} threads, card "
+              f"float64 plain {plain_ms:.3f} ms; largest difference "
+              f"{diff:.3e} ({rel:.3e} of the largest output, limit "
+              f"{NATIVE_TOL}) [{card}]")
+    return records
+
+
+def sweep_truth_rel(answer, n, rows):
+    """RMS relative error of a sweep answer's first `rows` rows against
+    the float64 plain product of the sweep's float32 inputs, on the card."""
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                     device="cuda").double()
+    b = torch.tensor(rng.standard_normal((n, 1)), dtype=torch.float32,
+                     device="cuda").double()
+    ref = kernel_matvec_torch(x[:rows], x, b, kernel_name="gaussian",
+                              block_n=256)
+    got = answer[:rows].double()
+    return float(torch.sqrt(torch.mean((got - ref) ** 2))
+                 / torch.sqrt(torch.mean(ref ** 2)))
+
+
+def harness_path(card, sfu_rate, kernels, entries, datasets):
+    """Phase 9: the harness around the engines on one card (see the
+    module docstring).  Appends the sweep's kernel shape to `entries`;
+    returns the phase's records."""
+    from kmb_tpu_torch import scaling
+    from kmb_tpu_torch.ops import _build
+    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+
+    started = time.perf_counter()
+    built = {(kind, args) for kind, args, _, _ in kernels}
+    _build.reset_launch_counts()
+    profiled = profiled_runs(card, built, datasets)
+    before = _build.DIRECT.launches
+    answers = []
+    rows = scaling.measure(SWEEP_N, 3, 1, "gaussian", [1], SWEEP_RUNS,
+                           device="cuda", outputs=answers)
+    sweep_launches = _build.DIRECT.launches - before
+    launches = {k.symbol: k.launches for k in _build.KERNELS}
+    for kernel in _build.KERNELS:
+        check(kernel.launches > 0,
+              f"{kernel.symbol} never launched on phase 9's path")
+    print(f"phase 9: harness path launches {launches} (the sweep "
+          f"{sweep_launches})")
+    (row,) = rows
+    check(row["efficiency"] == 1.0, f"phase 9 sweep row {row}")
+    rel = sweep_truth_rel(answers[0], SWEEP_N, SWEEP_CHECK_ROWS)
+    check(rel <= SWEEP_TOL, f"phase 9 sweep at 2^20: RMS error {rel:.3e} "
+          f"on {SWEEP_CHECK_ROWS} rows")
+    print(f"phase 9: scaling.measure at p = 1, N = M = {SWEEP_N}: "
+          f"{json.dumps(row)}; RMS rel error {rel:.3e} against float64 on "
+          f"{SWEEP_CHECK_ROWS} target rows [{card}]")
+    del answers
+
+    # The sweep's kernel shape (p = 1: the whole 2^20 x 2^20 product in
+    # one call), against the plain version in one call, timed.
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((SWEEP_N, 3)), dtype=torch.float32,
+                     device="cuda")
+    b = torch.tensor(rng.standard_normal((SWEEP_N, 1)), dtype=torch.float32,
+                     device="cuda")
+    kw = dict(kernel_name="gaussian")
+    got = kernel_matvec(x, x, b, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = kernel_matvec_torch(x, x, b, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, krel = compare(got, ref)
+    check(krel <= KERNEL_TOL["float32"],
+          f"sweep shape: kernel vs plain {krel:.3e}")
+    del got, ref
+    ms = time_ms(lambda: kernel_matvec(x, x, b, **kw), 2)
+    device_ms = kernel_device_ms(lambda: kernel_matvec(x, x, b, **kw), 2)
+    bound, bound_by, engine = bound_ms(SWEEP_N, SWEEP_N, 3, 1, "direct",
+                                       False, "float32", sfu_rate)
+    print(f"phase 9: direct kernel, normal D3 {SWEEP_N}^2 (the sweep's "
+          f"shape) [float32]: {ms:.4f} ms (kernel alone {device_ms} ms), "
+          f"plain {plain_ms:.1f} ms (one call), bound {bound:.4f} ms "
+          f"({engine}), max_abs_err vs plain {err:.3e} [{card}]")
+    entries.append(dict(
+        name="direct", route="cuda", source=SOURCE,
+        replaces=REPLACES["direct"], launches=sweep_launches,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=None,
+        at=f"normal D3 {SWEEP_N}^2 E1, scaling.measure at p = 1",
+        precision="float32", bound_engine=engine, kernel_device_ms=device_ms))
+    del x, b
+    torch.cuda.empty_cache()
+
+    natives = native_runs(card, datasets)
+    print(f"phase 9: {time.perf_counter() - started:.1f} s [{card}]")
+    return {"profiled": profiled, "native": natives, "sweep": rows,
+            "sweep_rel_error": rel}
+
+
+def harness_phase(card, entries):
+    """Phase 9 in a process of its own (this script with --phase9-report),
+    its output relayed: torch.profiler's CUDA records go missing in a
+    process that has launched many kernels since its last profiling
+    session (after phase 5), and the phase holds a trace's kernel events.
+    Appends the child's kernel entries to `entries`; returns its records."""
+    torch.cuda.empty_cache()   # the card's memory, for the other process
+    tmp = tempfile.mkdtemp(prefix="kmb_phase9_")
+    report = os.path.join(tmp, "report.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase9-report",
+         report], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(PHASE9_TIMEOUT, proc.kill)
+    watchdog.start()
+    try:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+        proc.wait()
+        check(proc.returncode == 0,
+              f"phase 9's process exited with {proc.returncode} [{card}]")
+        with open(report) as f:
+            out = json.load(f)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    entries.extend(out["entries"])
+    return out["records"]
+
+
+def harness_process(report):
+    """The process of phase 9: builds (or finds) the kernels, runs
+    `harness_path` and writes its records and kernel entries to
+    `report`."""
+    from kmb_tpu_torch.ops import _build
+
+    card = nvidia_smi("name,power.limit")
+    sfu_rate = special_function_rate(
+        torch.cuda.get_device_properties(0),
+        float(nvidia_smi("clocks.max.sm").split()[0]))
+    library = _build.build()
+    _build.load_library()
+    kernels = ptxas_kernels(_build.report_path(library).read_text())
+    datasets = load_datasets([name for name, _ in PROFILED]
+                             + list(NATIVE_DATASETS), {}, card)
+    entries = []
+    records = harness_path(card, sfu_rate, kernels, entries, datasets)
+    with open(report, "w") as f:
+        json.dump({"records": records, "entries": entries}, f)
+    return 0
+
+
+def sweep_on_ranks(rank):
+    """Phase 10 on one rank: the sweep over 1, 2 and 4 cards at each size;
+    rank 0's answers held against the single card's.  Returns the rows
+    and this rank's kernel launches."""
+    from kmb_tpu_torch import scaling
+    from kmb_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = []
+    for n in SWEEP_SIZES:
+        answers = []
+        rows = scaling.measure(n, 3, 1, "gaussian", list(SWEEP_COUNTS),
+                               SWEEP_RUNS, device="cuda", outputs=answers)
+        rel = None
+        if rank == 0:
+            one = answers[0].double()
+            rel = [float(torch.sqrt(torch.mean((a.double() - one) ** 2))
+                         / torch.sqrt(torch.mean(one ** 2)))
+                   for a in answers]
+        out.append({"n": n, "rows": rows, "rms_vs_one_card": rel})
+        del answers
+        torch.cuda.empty_cache()
+    return out, {k.symbol: k.launches for k in _build.KERNELS}
 
 
 if __name__ == "__main__":

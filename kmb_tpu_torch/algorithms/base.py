@@ -66,10 +66,17 @@ class BaseAlgorithm:
         return {}
 
     def get_memory_usage(self):
-        """Current RSS in kilobytes (host-side memory footprint)."""
-        import psutil  # only here: the card path reports device memory
+        """Current RSS in kilobytes (host-side memory footprint).
 
-        return psutil.Process().memory_info().rss / 1024
+        Read from /proc/self/statm, the number psutil's `rss` reports on
+        Linux: the card's machine has no psutil, and the host algorithms
+        (the native oracle, the fixtures) run there too.
+        """
+        import os
+
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 1024
 
     def done(self):
         """Release resources; always called, even after an exception."""

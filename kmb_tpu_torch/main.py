@@ -1,16 +1,19 @@
-"""Experiment orchestrator: plan, dedup, run (the port's kmb_tpu/main.py).
+"""Experiment orchestrator: plan, dedup, dispatch (the port's kmb_tpu/main.py).
 
-`python -m kmb_tpu_torch --dataset D --local` loads the dataset's attrs,
-expands kmb_tpu_torch/algos.yaml into the matching experiment definitions,
-drops those whose result files already exist, shuffles the rest and runs
-them serially in this process.  `--hardware` picks the algos.yaml tier and
-the device: GPU (the default) runs on "cuda" and raises when there is no
-CUDA device; CPU runs on "cpu", and only when asked for.
+`python -m kmb_tpu_torch --dataset D` loads the dataset's attrs, expands
+kmb_tpu_torch/algos.yaml into the matching experiment definitions, drops
+those whose result files already exist, shuffles the rest and runs them
+serially, each in a fresh child process under `--timeout`
+(runner.run_subprocess), or in this process with `--local`.  `--hardware`
+picks the algos.yaml tier and the device: GPU (the default) runs on "cuda"
+and exits when there is no CUDA device, before any child starts; CPU runs
+on "cpu", and only when asked for.
 
 Launched as several processes (torchrun, or the KMB_COORDINATOR_ADDRESS,
 KMB_NUM_PROCESSES and KMB_PROCESS_ID variables), one per card, every rank
 runs rank 0's plan in the same order, the sharded algorithms span all
-ranks, and rank 0 writes the results:
+ranks, and rank 0 writes the results.  A child process cannot join its
+parent's process group, so several ranks need `--local`:
 
     torchrun --nproc-per-node 4 -m kmb_tpu_torch --local --dataset D
 """
@@ -24,6 +27,7 @@ import os
 import random
 import sys
 
+import torch
 import torch.distributed
 
 from kmb_tpu_torch import resolve_device
@@ -34,7 +38,7 @@ from kmb_tpu_torch.definitions import (
 )
 from kmb_tpu_torch.parallel import multihost
 from kmb_tpu_torch.results import get_result_filename, record_failure
-from kmb_tpu_torch.runner import run
+from kmb_tpu_torch.runner import run, run_subprocess
 
 logger = logging.getLogger("kmb")
 
@@ -82,8 +86,12 @@ def make_parser():
         help="repetitions per experiment; the best time is kept, so run 1 "
              "absorbs the kernels' first-use build")
     parser.add_argument(
+        "--timeout", type=int, default=2 * 600,
+        help="per-experiment timeout in seconds (-1 for none)")
+    parser.add_argument(
         "--local", action="store_true",
-        help="run in-process (the only mode of this package so far)")
+        help="run in-process instead of isolated subprocesses (needed "
+             "when several ranks run)")
     parser.add_argument(
         "--max-n-algorithms", type=int, default=-1,
         help="cap the number of experiments (for smoke tests)")
@@ -105,6 +113,11 @@ def plan_experiments(args):
     task = dataset_file.attrs["task"]
     normalize_rows = bool(dataset_file.attrs.get("normalize_rows", False))
     dataset_file.close()
+    # A missing dataset's truth may have been computed on the card: give
+    # its memory back, so the children of a subprocess sweep find the
+    # card free but for this process's context.
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
     definitions = get_definitions(
         definition_file=args.definitions,
@@ -159,12 +172,11 @@ def plan_experiments(args):
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    if args.timeout == -1:
+        args.timeout = None
     if args.list_algorithms:
         list_algorithms(args.definitions)
         sys.exit(0)
-    if not args.local:
-        raise SystemExit(
-            "only in-process runs are ported so far: pass --local")
     # Fails here, before any dataset or result is written, when the tier's
     # device is missing: the port never carries on on the CPU unasked.
     try:
@@ -180,6 +192,10 @@ def main(argv=None):
     if multihost.initialize(device=device_for(args.hardware)):
         logger.info("Multi-process: rank %d of %d.",
                     torch.distributed.get_rank(), multihost.num_hosts())
+    if multihost.num_hosts() > 1 and not args.local:
+        raise SystemExit(
+            f"{multihost.num_hosts()} ranks: a child process cannot join "
+            "this process group, so a multi-process run needs --local")
 
     # Every rank runs rank 0's plan (its shuffle and its view of the
     # results already stored), in the same order: the ranks' collectives
@@ -190,22 +206,31 @@ def main(argv=None):
         raise SystemExit("Nothing to run")
     logger.info("Order: %s", [d.algorithm for d in definitions])
 
-    # One definition's failure must not end the sweep: log it, record a
-    # .failed marker, move on, and exit non-zero at the end.
+    # One definition's failure (a timeout, a dead child, an exception)
+    # must not end the sweep: log it, record a .failed marker, move on,
+    # and exit non-zero at the end.
     failures = 0
     for definition in definitions:
+        reason = None
         try:
-            run(definition=definition, dataset=args.dataset, runs=args.runs,
-                device=device_for(args.hardware))
+            if args.local:
+                run(definition=definition, dataset=args.dataset,
+                    runs=args.runs, device=device_for(args.hardware))
+            else:
+                reason = run_subprocess(
+                    definition=definition, dataset=args.dataset,
+                    runs=args.runs, hardware=args.hardware,
+                    timeout=args.timeout)
         except Exception as exc:
-            failures += 1
+            reason = f"exception: {exc!r}"
             logger.exception("Experiment failed: %s on %s",
                              definition, args.dataset)
+        if reason is not None:
+            failures += 1
             for qa in (definition.query_argument_groups or [{}]
                        if multihost.is_coordinator() else []):
                 record_failure(dataset=args.dataset, definition=definition,
-                               query_arguments=qa,
-                               reason=f"exception: {exc!r}")
+                               query_arguments=qa, reason=reason)
     if failures:
         logger.warning("%d/%d experiments failed.", failures,
                        len(definitions))

@@ -374,7 +374,8 @@ def test_algos_yaml_mirrors_the_tpu_approx_groups():
     assert {"torch-nystrom-product", "torch-blr-product",
             "torch-rff-product"} <= {d.algorithm for d in gpu}
     cpu = get_definitions(dataset=CUBE, task="product", hardware="CPU")
-    assert {d.algorithm for d in cpu} == {"torch-product-cpu"}
+    assert {d.algorithm for d in cpu} == {
+        "torch-product-cpu", "bruteforce-product-blas", "native-product"}
 
 
 def ridge_residual(c, b, a, lam):

@@ -61,8 +61,9 @@ def test_gpu_tier_refuses_the_cpu_in_process(argv, tmp_path, monkeypatch):
 def test_cpu_tier_runs_when_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cli.main(["--local", "--hardware", "CPU", "--dataset", DATASET])
-    rows = list(load_all_results(DATASET))
-    assert len(rows) == 1
-    props, _ = rows[0]
-    assert props["algo"] == "torch-product-cpu"
+    # The plain PyTorch product, with the host baselines of the CPU tier.
+    rows = [props for props, _ in load_all_results(DATASET)]
+    assert sorted({props["algo"] for props in rows}) == [
+        "bruteforce-product-blas", "native-product", "torch-product-cpu"]
+    (props,) = [p for p in rows if p["algo"] == "torch-product-cpu"]
     assert props["backend"] == "cpu"

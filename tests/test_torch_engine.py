@@ -156,10 +156,13 @@ def test_cli_stores_rows_like_the_jax_harness(tmp_path):
          "CPU", "--dataset", dataset],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    rows = list(load_all_results(dataset))
-    assert len(rows) == 1
-    props, _ = rows[0]
-    assert props["algo"] == "torch-product-cpu"
+    # The CPU tier: the plain PyTorch product beside the host baselines
+    # (the numpy oracle at six precisions, the native oracle).
+    rows = [props for props, _ in load_all_results(dataset)]
+    assert sorted(props["algo"] for props in rows) == sorted(
+        ["torch-product-cpu", "native-product"]
+        + ["bruteforce-product-blas"] * 6)
+    (props,) = [p for p in rows if p["algo"] == "torch-product-cpu"]
     assert props["run_count"] == 2
     assert props["build_time"] >= 0 and props["query_time"] > 0
     assert props["backend"] == "cpu"
@@ -201,10 +204,22 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
                    "kmb_tpu_torch.parallel.multihost",
                    "kmb_tpu_torch.parallel.sharded",
                    "kmb_tpu_torch.algorithms.torch_sharded",
-                   "kmb_tpu_torch.__main__"):
+                   "kmb_tpu_torch.__main__",
+                   "kmb_tpu_torch.algorithms.dummy",
+                   "kmb_tpu_torch.algorithms.native_oracle",
+                   "kmb_tpu_torch.native", "kmb_tpu_torch.run_algorithm",
+                   "kmb_tpu_torch.plotting.metrics",
+                   "kmb_tpu_torch.plotting.utils",
+                   "kmb_tpu_torch.plotting.plot_variants",
+                   "kmb_tpu_torch.plot", "kmb_tpu_torch.report",
+                   "kmb_tpu_torch.website", "kmb_tpu_torch.create_dataset",
+                   "kmb_tpu_torch.scaling"):
         assert module in report["modules"]
     loaded = report["loaded"]
-    for banned in ("jax", "jaxlib", "kmb_tpu", "h5py", "yaml", "psutil"):
+    # Nor matplotlib or jinja2: the plots and the website import them
+    # where they draw or render.
+    for banned in ("jax", "jaxlib", "kmb_tpu", "h5py", "yaml", "psutil",
+                   "matplotlib", "jinja2"):
         hits = [m for m in loaded
                 if m == banned or m.startswith(banned + ".")]
         assert not hits, f"importing kmb_tpu_torch loaded {hits}"

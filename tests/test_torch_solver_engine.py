@@ -271,13 +271,15 @@ def test_algos_yaml_mirrors_the_tpu_solver_groups():
 def test_definitions_pick_the_solvers_by_tier():
     gpu = get_definitions(dataset=CUBE, task="solver", hardware="GPU")
     cpu = get_definitions(dataset=CUBE, task="solver", hardware="CPU")
+    # The host baseline bruteforce-solver-blas rides along in every tier.
     assert {d.algorithm for d in gpu} == {
         "torch-solver-direct", "torch-solver-cg", "torch-solver-cpu",
         "torch-blr-solver", "torch-nystrom-solver",
-        "torch-sharded-solver-cg"}
-    assert {d.algorithm for d in cpu} == {"torch-solver-cpu"}
+        "torch-sharded-solver-cg", "bruteforce-solver-blas"}
+    assert {d.algorithm for d in cpu} == {"torch-solver-cpu",
+                                          "bruteforce-solver-blas"}
     big = get_definitions(dataset="solver-cube-D3-E1-M131072-N131072-"
                           "gaussian", task="solver", hardware="GPU")
     assert {d.algorithm for d in big} == {
         "torch-solver-cg", "torch-blr-solver", "torch-nystrom-solver",
-        "torch-sharded-solver-cg"}
+        "torch-sharded-solver-cg", "bruteforce-solver-blas"}

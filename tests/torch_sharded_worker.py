@@ -18,6 +18,11 @@ Modes:
   the runtime helpers, the lifecycle of ShardedProduct and
   ShardedSolverCG, one `runner.run` of ShardedProduct and one CLI run of
   torch-product-cpu on a dataset the parent generated.
+- "scaling" (2 ranks, from the KMB_* variables): kmb_tpu_torch.scaling's
+  sweep over meshes of 1 and 2 ranks (rank 1 outside the first), its rows
+  and rank 0's answers.
+- "subprocess-cli" (2 ranks, from the KMB_* variables): the CLI without
+  --local, which must refuse to run; the message it exits with.
 """
 
 import os
@@ -183,6 +188,32 @@ def multihost_mode(rank, world, inputs, out):
     multihost.barrier()
 
 
+def scaling_mode(rank, world, inputs, out):
+    from kmb_tpu_torch import scaling
+
+    answers = []
+    rows = scaling.measure(int(inputs["n"]), 3, 1, "gaussian", [1, 2],
+                           runs=2, device="cpu", outputs=answers)
+    for row in rows:
+        for key, value in row.items():
+            out[f"row{row['devices']}/{key}"] = np.float64(value)
+    for p, answer in zip((1, 2), answers):
+        out[f"answer{p}/member"] = np.bool_(answer is not None)
+        if answer is not None:
+            out[f"answer{p}"] = answer.numpy()
+
+
+def subprocess_cli_mode(rank, world, inputs, out):
+    from kmb_tpu_torch.main import main as cli_main
+
+    try:
+        cli_main(["--hardware", "CPU", "--dataset", str(inputs["dataset"])])
+    except SystemExit as exc:
+        out["exit"] = np.array(str(exc.code))
+    else:
+        out["exit"] = np.array("")
+
+
 def main():
     mode, rank, world, store, inputs_path, out_dir = sys.argv[1:]
     rank, world = int(rank), int(world)
@@ -204,6 +235,10 @@ def main():
     out = {}
     if mode == "sharded":
         sharded(rank, inputs, out)
+    elif mode == "scaling":
+        scaling_mode(rank, world, inputs, out)
+    elif mode == "subprocess-cli":
+        subprocess_cli_mode(rank, world, inputs, out)
     else:
         multihost_mode(rank, world, inputs, out)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
