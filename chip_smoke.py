@@ -14,32 +14,45 @@ Phases, each of which must pass:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    the nvcc build of kmb_tpu_torch/ops/csrc/ (one process per source, the
-   seconds of each), and ptxas's registers and spills (`-Xptxas -v`).
+   seconds of each), and ptxas's registers and spills (`-Xptxas -v`) of
+   each family, the wide mode's included, and its wgmma serialisation
+   warnings.
 2. Both kernels (direct and flash) against the plain PyTorch version on the
    card, in all three precision tiers and for all four kernel maps, at
-   ragged shapes (D in {3, 9, 37, 64, 130, 784}, E in {1, 2, 4, 8, 13}, N
-   and M not multiples of 16, 64 or 128), with the diagonal mask,
-   normalize_rows, density estimation, the deferred states, offsets and
-   limits (also ending inside a tile), and large logits at D = 4 (small-D
-   loop) and D = 64 (tensor cores).
+   ragged shapes (D in {3, 5, 9, 37, 64, 130, 784}, E in {1, 2, 4, 8, 13}
+   and, in the wide mode, {9, 16, 64, 100, 256, 512}, N and M not
+   multiples of 16, 64 or 128), with the diagonal mask, normalize_rows,
+   density estimation, the deferred states, offsets and limits (also
+   ending inside a tile), and large logits at D = 4 (small-D loop) and
+   D = 64 (tensor cores).  One long case, M = 131072 and E = 256, is held
+   against float64: the wide mode no less accurate than the same signal
+   in the narrow mode.  The E = 512 shape is timed in each tier.
 3. The main path, through the port's runner (`run_on_arrays`, runs=2), on
-   four datasets in three tiers, each held against its float64 truth
-   computed on the card; every kernel launch is counted.
+   five datasets in three tiers, each held against its float64 truth
+   computed on the card; every kernel launch is counted, and the D256 E16
+   product must take one launch of the wide mode per query.
 4. Each kernel timed at the main path's shapes, in each tier, beside its
    plain version, its bound and (for the flash kernel) the library's
-   attention call, and held against the plain version there too.  `ms` is
-   the wrapper's call (staging, launches, merge) with CUDA events;
-   `kernel_device_ms` is the kernel alone, from torch.profiler.
+   attention call, and held against the plain version there too (the
+   D256 E16 shape against the narrow mode on the same inputs: both modes'
+   large-D form cancels at the diagonal of its same points further from
+   the plain version than 1e-4, ROADMAP Queue 3).  `ms` is the wrapper's
+   call (staging, launches, merge) with CUDA events; `kernel_device_ms` is
+   the kernel alone, from torch.profiler.
 5. The solver path, through the port's runner (runs=2): Nystrom PCG,
    block-abs Jacobi MINRES and iterative refinement on the direct kernel,
    and the dense solvers, on the registry's solver datasets at full size.
    Each answer's float64 true residual ||K b - a|| / ||a|| is computed on
    the card and held under its limit (a dense answer: its backward error
    against the float64 matrix of the plain product); every iteration must
-   have launched the direct kernel, and the plain version may run only in
-   float64 (truth, residuals and that matrix).  The solver path's kernel
-   shapes (the Nystrom sketch at E = 256, the E = 1 matvec at M = 10^4)
-   are held against the plain version and timed.
+   have launched the direct kernel, each Nystrom build exactly once (the
+   sketch, one launch of the wide mode), and the plain version may run
+   only in float64 (truth, residuals and that matrix); the Nystrom PCG
+   takes no more than max(3, 10%) beyond the 142 iterations recorded
+   before the wide mode (its best residual came at 82, the stall window
+   ended it).  The solver path's kernel
+   shapes (the Nystrom sketch at E = 256 in each tier, the E = 1 matvec
+   at M = 10^4) are held against the plain version and timed.
 6. The approximate path, through the port's runner (runs=2): the
    block-low-rank product (fixed rank and epsilon), Nystrom and random
    features (product and attention, materialised and streamed), the
@@ -60,7 +73,7 @@ Phases, each of which must pass:
    runner (runs=2), each held against its float64 truth under phase 3's
    and phase 5's limits, the products also against the single-card
    TorchProduct answer, the PCG iterations within max(3, 10%) of the
-   single-card TorchSolverCG's.  Then the per-shard arithmetic of four
+   single-card TorchSolverCG's, its sketch one launch per ring chunk.  Then the per-shard arithmetic of four
    cards on this one: the ring's chunks and fold for four virtual ranks,
    the all-pairs blocks on a virtual 2 x 2 grid, against the single-card
    product and the float64 truth; and the ring chunk's kernel shapes at
@@ -151,7 +164,18 @@ MAIN_PATH = (
      "expanded form, D > 8"),
     ("attention-normal-D64-E8-M10000-N10000-exponential", "flash",
      "online softmax"),
+    ("product-normal-D256-E16-M20000-N20000-absolute-exponential", "direct",
+     "wide signal, D > 8"),
 )
+# Datasets whose queries must run the wide mode (E > 8), one launch each.
+WIDE_MAIN_PATH = ("product-normal-D256-E16-M20000-N20000-absolute-exponential",)
+# Phase 5's single-card Nystrom PCG: its iterations with the sketch in
+# launches of 8 columns (PERF.md section 5).  Its best residual there, 1.569e-6, above the tolerance
+# 1e-6, came at iteration 82, and the stall window (60 iterations without
+# a new best) ended the solve: a preconditioner no worse takes no more
+# than max(3, 10%) beyond it, and one whose float32 floor lies below the
+# tolerance stops near iteration 82 instead.
+NYSTROM_PCG_ITERATIONS = 142
 # The JAX package's bf16 tier on the same datasets: RMS(result - truth) /
 # RMS(truth) of its TPU records
 # results/product-{sphere,cube}-D3-E1-M131072-N131072-*/tpu-product/
@@ -320,6 +344,9 @@ REPLACES = {
              "pallas_call at :608)",
 }
 SOURCE = "kmb_tpu_torch/ops/csrc/product.cu"
+# The wide mode (E > 8, acc_mode="mxu" of the Pallas kernels): the entry
+# points of product.cu, its signal products in wide.cuh.
+WIDE_SOURCE = "kmb_tpu_torch/ops/csrc/wide.cuh"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
 # TF32 and bf16 on the tensor cores, device memory bandwidth, and
@@ -330,15 +357,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SFU_PER_CLOCK_PER_SM = 16
 
-# The large-D form product on the tensor cores: (passes, peak) per tier.
-# The f32 tiers run 3xTF32 (lo.hi + hi.lo + hi.hi), bf16 one pass.
+# The large-D form product and the wide mode's signal product on the
+# tensor cores: (passes, peak) per tier.  The f32 tiers run 3xTF32
+# (lo.hi + hi.lo + hi.hi), bf16 one pass.
 TENSOR_CORE_FORM = {"float32": (3, PEAK_TF32_FLOPS),
                     "float32x3": (3, PEAK_TF32_FLOPS),
                     "bfloat16": (1, PEAK_BF16_FLOPS)}
 
-# The instantiations the main path launches, by (template, arguments as
-# ptxas's mangled names list them), for phase 1's register report:
-# small_d<map, D, E, flash, den, rnd>, large_d<map, E, flash, den, bf16>.
+# The instantiations the main and solver paths launch, by (template, or
+# the wide mode's source, and arguments as ptxas's mangled names list
+# them), for phase 1's register report: small_d<map, D, E, flash, den,
+# rnd>, large_d<map, E, flash, den, bf16>, small_d_wide_<D>_<tier><map, E
+# block, flash>, large_d_wide_<tier><map, flash>.
 MAIN_PATH_KERNELS = {
     ("small_d_kernel", "0,3,1,0,0,0"): "cube, float32",
     ("small_d_kernel", "0,3,1,0,0,1"): "cube, bfloat16",
@@ -347,7 +377,15 @@ MAIN_PATH_KERNELS = {
     ("large_d_kernel", "0,1,0,0,1"): "D784, bfloat16",
     ("large_d_kernel", "3,8,1,0,0"): "attention, float32 (3xTF32)",
     ("large_d_kernel", "3,8,1,0,1"): "attention, bfloat16",
+    ("large_d_wide_tf32", "1,0"): "D256 E16, float32 (3xTF32)",
+    ("large_d_wide_bf16", "1,0"): "D256 E16, bfloat16",
+    ("small_d_wide_3_tf32", "0,64,0"): "Nystrom sketch E=256, float32",
+    ("small_d_wide_3_bf16", "0,64,0"): "Nystrom sketch E=256, bfloat16",
 }
+# Kernel families of phase 1's report (a wide family: one source each).
+KERNEL_FAMILY = re.compile(
+    r"(small_d_wide_[38]_(?:tf32|bf16)|large_d_wide_(?:tf32|bf16)"
+    r"|small_d_kernel|large_d_kernel)")
 
 
 class SmokeFailure(RuntimeError):
@@ -397,7 +435,7 @@ def ptxas_kernels(report):
     out = []
     for entry in re.split(r"Compiling entry function '", report)[1:]:
         name = entry.split("'")[0]
-        kind = re.search(r"(small_d_kernel|large_d_kernel)", name)
+        kind = KERNEL_FAMILY.search(name)
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           entry)
@@ -411,25 +449,37 @@ def ptxas_kernels(report):
 def bound_ms(n, m, d, e, which, normalize, tier, sfu_rate):
     """The least time the card could take for one call, and what bounds it.
 
-    The larger of: the form (2 D flops per pair) and the signal columns
-    (2 flops per pair and column) on the f32 units at D <= 8; at D > 8 the
-    form on the tensor cores (3 passes of TF32 in the f32 tiers, one of
-    bf16) plus the signal columns on the f32 units; one transcendental per
-    pair on the special-function units; each input read once and each
-    output written once from device memory.
+    The larger of each unit's share: the form (2 D flops per pair) on the
+    f32 units at D <= 8, on the tensor cores at D > 8 (3 passes of TF32 in
+    the f32 tiers, one of bf16); one transcendental per pair on the
+    special-function units; each input read once and each output written
+    once from device memory; and the signal columns (2 flops per pair and
+    column) on whichever unit gives the least such time, whatever unit the
+    kernel uses: in the f32 tiers the f32 units or 3 TF32 passes on the
+    tensor cores (f32-accurate), in bfloat16 one bf16 pass.
     """
     cols = e + (1 if normalize and which == "direct" else 0)
+    pairs = float(n) * m
+    passes, peak = TENSOR_CORE_FORM[tier]
+    shares = {"f32 FMA": 0.0, "tensor cores": 0.0,
+              "special-function units": pairs / sfu_rate,
+              "memory": ((n + m) * d + m * e + n * e) * 4 / PEAK_BYTES}
     if d <= 8:
-        terms = {"f32 FMA": 2.0 * n * m * (d + cols) / PEAK_F32_FLOPS}
+        shares["f32 FMA"] += 2.0 * pairs * d / PEAK_F32_FLOPS
     else:
-        passes, peak = TENSOR_CORE_FORM[tier]
-        terms = {"tensor cores": 2.0 * n * m * d * passes / peak,
-                 "f32 FMA": 2.0 * n * m * cols / PEAK_F32_FLOPS}
-    terms["special-function units"] = n * m / sfu_rate
-    terms["memory"] = ((n + m) * d + m * e + n * e) * 4 / PEAK_BYTES
-    engine = max(terms, key=terms.get)
-    return (terms[engine] * 1e3, "bytes" if engine == "memory"
-            else "operations", engine)
+        shares["tensor cores"] += 2.0 * pairs * d * passes / peak
+    signal = {"tensor cores": 2.0 * pairs * cols * passes / peak}
+    if tier != "bfloat16":
+        signal["f32 FMA"] = 2.0 * pairs * cols / PEAK_F32_FLOPS
+    options = []
+    for unit, seconds in signal.items():
+        terms = dict(shares)
+        terms[unit] += seconds
+        engine = max(terms, key=terms.get)
+        options.append((terms[engine], engine))
+    least, engine = min(options)
+    return (least * 1e3, "bytes" if engine == "memory" else "operations",
+            engine)
 
 
 def special_function_rate(props, max_clock_mhz):
@@ -460,10 +510,10 @@ def time_ms(fn, reps):
 
 def kernel_device_ms(fn, reps=3):
     """Device time of one launch of the hand-written kernel (the
-    profiler's records whose name holds "_d_kernel", averaged over the
-    records it kept), so `ms` splits into kernel and wrapper: the main
-    path launches one kernel per call (E <= 8).  None if the profiler
-    saw no such record."""
+    profiler's records named as KERNEL_FAMILY's templates, averaged over
+    the records it kept), so `ms` splits into kernel and wrapper: the
+    kernels take one launch per call.  None if the profiler saw no such
+    record."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -472,7 +522,8 @@ def kernel_device_ms(fn, reps=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if "_d_kernel" in e.key]
+    found = [e for e in prof.key_averages()
+             if re.search(r"_d_(wide_)?kernel", e.key)]
     count = sum(e.count for e in found)
     us = sum(getattr(e, "self_device_time_total", 0) for e in found)
     return us / count / 1e3 if count and us > 0 else None
@@ -563,13 +614,21 @@ def main(argv=None):
         if line.startswith("== "):
             print(f"phase 1: nvcc {line[3:]}")
     kernels = ptxas_kernels(report)
-    for kind in ("small_d_kernel", "large_d_kernel"):
+    for kind in ("small_d_kernel", "large_d_kernel", "small_d_wide_3_tf32",
+                 "small_d_wide_3_bf16", "small_d_wide_8_tf32",
+                 "small_d_wide_8_bf16", "large_d_wide_tf32",
+                 "large_d_wide_bf16"):
         regs = [r for k, _, r, _ in kernels if k == kind]
         check(regs, f"no {kind} in the build")
         print(f"phase 1: {len(regs)} {kind} instantiations, {min(regs)}-"
               f"{max(regs)} registers")
     spilled = [(k, a, s) for k, a, _, s in kernels if s > 0]
     print(f"phase 1: {len(spilled)} kernels spill: {spilled}")
+    # ptxas serialises a wgmma pipeline it cannot prove safe, and says so.
+    serialized = [line for line in report.splitlines()
+                  if "wgmma" in line and "erializ" in line]
+    print(f"phase 1: {len(serialized)} wgmma serialisation warnings"
+          + "".join(f"\n  {line}" for line in serialized[:4]))
     for (kind, args), what in MAIN_PATH_KERNELS.items():
         found = [(r, s) for k, a, r, s in kernels if (k, a) == (kind, args)]
         check(len(found) == 1, f"{kind}<{args}> not in the build")
@@ -579,9 +638,9 @@ def main(argv=None):
     print(f"phases {sorted(phases)} [{card}]")
 
     entries, datasets, per_run = [], {}, {}
-    solvers = approx = sharded = four = harness = None
+    solvers = approx = sharded = four = harness = wide_shapes = None
     if 2 in phases:
-        kernels_vs_plain(dev)
+        wide_shapes = kernels_vs_plain(dev, card, sfu_rate)
     if 3 in phases:
         per_run = main_path(card, datasets)
     if 4 in phases:
@@ -605,7 +664,8 @@ def main(argv=None):
     if phases & {4, 7}:
         check({entry["name"] for entry in entries} == {"direct", "flash"},
               "a kernel was not timed")
-    for key, records in (("approx", approx), ("solvers", solvers),
+    for key, records in (("wide_e512", wide_shapes), ("approx", approx),
+                         ("solvers", solvers),
                          ("sharded", sharded), ("four_cards", four),
                          ("harness", harness)):
         if records is not None:
@@ -618,13 +678,15 @@ def main(argv=None):
     return 0
 
 
-def kernels_vs_plain(dev):
+def kernels_vs_plain(dev, card, sfu_rate):
     """Phase 2: both kernels against the plain version on the card (see
-    the module docstring)."""
+    the module docstring).  Returns the timed E = 512 shape's records."""
+    from kmb_tpu_torch.datasets import make_arrays
+    from kmb_tpu_torch.ops import _build
     from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
 
     rng = np.random.default_rng(0)
-    worst = {"direct": (0.0, ""), "flash": (0.0, "")}  # relative, case
+    worst = {}   # kernel and mode -> (relative error, case)
     n_cases = 0
 
     def hold(label, which, tol, x, y, b, **kw):
@@ -633,21 +695,29 @@ def kernels_vs_plain(dev):
         ref = as_tuple(kernel_matvec_torch(x, y, b, **kw))
         torch.cuda.synchronize()
         check(len(got) == len(ref), f"{label}: state arity differs")
+        key = which + (" (wide)" if b is not None and b.shape[1] > 8 else "")
         for g, r in zip(got, ref):
             _, rel = compare(g, r)
             check(rel <= tol, f"{label}: relative error {rel:.3e} > {tol}")
-            worst[which] = max(worst[which], (rel, label))
+            worst[key] = max(worst.get(key, (0.0, "")), (rel, label))
         n_cases += 1
 
     # N and M not multiples of 16, 64 or 128; D not multiples of 8 or 32.
     shapes = ((1037, 1511, 3, 1), (517, 1203, 64, 8), (300, 411, 784, 1),
               (301, 1203, 9, 13), (211, 999, 37, 2), (257, 1031, 130, 4))
+    # E above 8, the wide mode, both forms (E blocks of 16 at D > 8), drawn
+    # from a generator of their own: the shapes above keep their draws.
+    wide_rng = np.random.default_rng(1)
+    wide_shapes = ((1037, 1511, 3, 9), (517, 1203, 64, 16), (301, 1203, 5, 64),
+                   (211, 999, 130, 100), (257, 1031, 3, 256),
+                   (300, 411, 37, 512))
     for tier in TIERS:
         tol = KERNEL_TOL[tier]
-        for n, m, d, e in shapes:
-            x = cuda(rng.standard_normal((n, d)) / np.sqrt(d))
-            y = cuda(rng.standard_normal((m, d)) / np.sqrt(d))
-            b = cuda(rng.standard_normal((m, e)))
+        for (n, m, d, e), draw in ([(sh, rng) for sh in shapes]
+                                   + [(sh, wide_rng) for sh in wide_shapes]):
+            x = cuda(draw.standard_normal((n, d)) / np.sqrt(d))
+            y = cuda(draw.standard_normal((m, d)) / np.sqrt(d))
+            b = cuda(draw.standard_normal((m, e)))
             for name in KERNEL_NAMES:
                 common = dict(kernel_name=name, precision=tier)
                 tag = f"{tier} {name} N={n} M={m} D={d} E={e}"
@@ -696,9 +766,73 @@ def kernels_vs_plain(dev):
                  kernel_name="exponential", normalize_rows=True,
                  precision=tier)
     print(f"phase 2: {n_cases} cases, kernels match the plain version")
-    for which, (rel, label) in worst.items():
+    for which, (rel, label) in sorted(worst.items()):
         print(f"phase 2: worst {which} kernel relative error {rel:.3e} "
               f"({label})")
+
+    # One long case: the wide mode's sums over 131072 source columns at
+    # E = 256 (the Nystrom sketch's shape) against float64 on 2048 rows,
+    # no less accurate than the same signal through the narrow mode (32
+    # launches of 8 columns, FP32 products, a fresh partial per tile).
+    y = cuda(make_arrays(CUBE_131072)["source_points"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    b = torch.randn((len(y), 256), generator=gen, device=dev)
+    rows = slice(0, 2048)
+    exact = kernel_matvec_torch(y[rows].double(), y.double(), b.double(),
+                                kernel_name="gaussian")
+    wide = kernel_matvec(y, y, b, kernel_name="gaussian")[rows]
+    narrow = torch.cat([kernel_matvec(y, y, b[:, c:c + 8].contiguous(),
+                                      kernel_name="gaussian")[rows]
+                        for c in range(0, 256, 8)], dim=1)
+    plain = kernel_matvec_torch(y[rows], y, b, kernel_name="gaussian")
+
+    def rel64(v):
+        return float(torch.linalg.norm(v.double() - exact)
+                     / torch.linalg.norm(exact))
+
+    errors = {k: rel64(v) for k, v in (("wide", wide), ("narrow", narrow),
+                                       ("plain", plain))}
+    print(f"phase 2: M = 131072, E = 256 against float64 (2048 rows): wide "
+          f"mode {errors['wide']:.3e}, narrow mode {errors['narrow']:.3e}, "
+          f"plain float32 {errors['plain']:.3e} [{card}]")
+    check(errors["wide"] <= errors["narrow"],
+          f"the wide mode at M = 131072 is less accurate than the narrow "
+          f"mode: {errors}")
+    del y, b, exact, wide, narrow, plain
+
+    # The E = 512 shape, timed: the most E blocks of a launch.
+    records = []
+    n, m, d, e = 300, 411, 37, 512
+    x = cuda(wide_rng.standard_normal((n, d)) / np.sqrt(d))
+    y = cuda(wide_rng.standard_normal((m, d)) / np.sqrt(d))
+    b = cuda(wide_rng.standard_normal((m, e)))
+    for which, normalize in (("direct", False), ("flash", True)):
+        kernel = getattr(_build, which.upper())
+        for tier in TIERS:
+            kw = dict(kernel_name="gaussian", normalize_rows=normalize,
+                      precision=tier)
+            before = (kernel.launches, kernel.wide_launches)
+            got = kernel_matvec(x, y, b, **kw)
+            per_call = (kernel.launches - before[0],
+                        kernel.wide_launches - before[1])
+            check(per_call == (1, 1), f"E = 512 {which} {tier}: launches "
+                  f"(all, wide) {per_call}, not one wide launch")
+            err, rel = compare(got, kernel_matvec_torch(x, y, b, **kw))
+            check(rel <= KERNEL_TOL[tier], f"E = 512 {which} {tier}: {rel}")
+            ms = time_ms(lambda: kernel_matvec(x, y, b, **kw), 20)
+            plain_ms = time_ms(lambda: kernel_matvec_torch(x, y, b, **kw), 5)
+            bound, bound_by, engine = bound_ms(n, m, d, e, which, normalize,
+                                               tier, sfu_rate)
+            print(f"phase 2: {which} kernel, N={n} M={m} D={d} E={e} "
+                  f"[{tier}]: {ms:.4f} ms in 1 launch, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({engine}), "
+                  f"max_abs_err vs plain {err:.3e} [{card}]")
+            records.append(dict(name=which, shape=[n, m, d, e],
+                                precision=tier, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=bound_by,
+                                bound_engine=engine, max_abs_err=err))
+    return records
 
 
 def main_path(card, datasets):
@@ -724,14 +858,21 @@ def main_path(card, datasets):
                            "normalize_rows": bool(arrays["normalize_rows"]),
                            "precision": tier},
                 query_argument_groups=[{}])
+            kernel = getattr(_build, which.upper())
             before = {k.symbol: k.launches for k in _build.KERNELS}
+            wide_before = kernel.wide_launches
             (row,) = run_on_arrays(definition, arrays, runs=2)
             launched = {k.symbol: k.launches - before[k.symbol]
                         for k in _build.KERNELS}
-            symbol = getattr(_build, which.upper()).symbol
+            symbol = kernel.symbol
             check(launched[symbol] >= 2,
                   f"{name} {tier}: {symbol} launched {launched[symbol]} "
                   "times in 2 queries")
+            if name in WIDE_MAIN_PATH:   # one wide launch per query
+                wide = kernel.wide_launches - wide_before
+                check(launched[symbol] == wide == 2,
+                      f"{name} {tier}: {launched[symbol]} launches, {wide} "
+                      "of the wide mode, in 2 queries")
             truth = arrays["target_signal"]
             rel = float(np.sqrt(np.mean(row.error ** 2))
                         / np.sqrt(np.mean(truth ** 2)))
@@ -753,7 +894,10 @@ def main_path(card, datasets):
     for kernel in _build.KERNELS:
         check(kernel.launches > 0,
               f"{kernel.symbol} never launched on the main path")
-    print(f"phase 3: main path launches {launches}")
+    check(_build.DIRECT.wide_launches > 0,
+          "the wide mode never launched on the main path")
+    print(f"phase 3: main path launches {launches}, of them wide "
+          f"{ {k.symbol: k.wide_launches for k in _build.KERNELS} }")
     return per_run
 
 
@@ -788,8 +932,25 @@ def main_path_kernels(card, sfu_rate, entries, datasets, per_run):
             got = kernel_matvec(x, y, b, **kwt)
             ref = kernel_matvec_torch(x, y, b, **kwt)
             err, rel = compare(got, ref)
-            check(rel <= KERNEL_TOL[tier],
-                  f"{name} {tier}: kernel vs plain {rel:.3e}")
+            if name in WIDE_MAIN_PATH:
+                # The large-D form of both modes cancels at the diagonal of
+                # same points, with the abs-exp map's square root, more
+                # than the plain version's (ROADMAP Queue 3; phase 3 holds
+                # it to float64): the wide mode is held against the narrow
+                # mode on the same inputs, the same form, so that what
+                # differs is the signal product.
+                narrow = torch.cat(
+                    [kernel_matvec(x, y, b[:, c:c + 8].contiguous(), **kwt)
+                     for c in range(0, e, 8)], dim=1)
+                _, rel_narrow = compare(got, narrow)
+                print(f"{name} [{tier}]: kernel vs plain {rel:.3e}, wide "
+                      f"vs narrow mode {rel_narrow:.3e} [{card}]")
+                check(rel_narrow <= KERNEL_TOL[tier],
+                      f"{name} {tier}: wide vs narrow mode {rel_narrow:.3e}")
+                del narrow
+            else:
+                check(rel <= KERNEL_TOL[tier],
+                      f"{name} {tier}: kernel vs plain {rel:.3e}")
             del got, ref
             reps = 3 if n * m > 10**9 else 10
             ms = time_ms(lambda: kernel_matvec(x, y, b, **kwt), reps)
@@ -808,12 +969,13 @@ def main_path_kernels(card, sfu_rate, entries, datasets, per_run):
                   f"library {lib} ms, {n * m / (ms * 1e-3):.4e} pairs/s, "
                   f"max_abs_err vs plain {err:.3e} [{card}]")
             entries.append(dict(
-                name=which, route="cuda", source=SOURCE,
+                name=which, route="cuda",
+                source=WIDE_SOURCE if e > 8 else SOURCE,
                 replaces=REPLACES[which], launches=per_run[name, tier],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms, at=name,
                 precision=tier, bound_engine=engine,
-                kernel_device_ms=device_ms))
+                kernel_device_ms=device_ms, wide_mode=e > 8))
         del x, y, b
         torch.cuda.empty_cache()
 
@@ -927,6 +1089,13 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
             check(query_per_run >= iterations,
                   f"{label}: {query_per_run} direct-kernel launches for "
                   f"{iterations} iterations in one query")
+        if args.get("precond_rank"):   # the sketch: one wide launch
+            check(fit_per_run == 1, f"{label}: {fit_per_run} direct-kernel "
+                  "launches per fit, not one (the Nystrom sketch)")
+        if label == "Nystrom PCG" and name == CUBE_131072:
+            most = NYSTROM_PCG_ITERATIONS + max(3, 0.1 * NYSTROM_PCG_ITERATIONS)
+            check(iterations <= most, f"{label}: {iterations} iterations, "
+                  f"more than {most} (before: {NYSTROM_PCG_ITERATIONS})")
         held, eta = "true residual", None
         if limit is None:   # a dense run: its backward error is held
             held = "backward error"
@@ -960,42 +1129,51 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
     print(f"phase 5: solver path launches {launches}")
 
     # The solver path's kernel shapes against the plain version, timed:
-    # the Nystrom sketch (E = 256) and the E = 1 matvec of each dataset.
+    # the Nystrom sketch (E = 256, one launch of the wide mode, in each
+    # tier) and the E = 1 matvec of each dataset.
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    for name, e in ((CUBE_131072, 256), (CUBE_131072, 1),
-                    (SPHERE_131072, 1), (CUBE_10000, 1)):
+    for name, e, tier in ((CUBE_131072, 256, "float32"),
+                          (CUBE_131072, 256, "float32x3"),
+                          (CUBE_131072, 256, "bfloat16"),
+                          (CUBE_131072, 1, "float32"),
+                          (SPHERE_131072, 1, "float32"),
+                          (CUBE_10000, 1, "float32")):
         arrays = datasets[name]
         y = cuda(arrays["source_points"])
+        gen.manual_seed(e)
         b = torch.randn((len(y), e), generator=gen, device=dev)
-        kw = dict(kernel_name=arrays["kernel"])
+        kw = dict(kernel_name=arrays["kernel"], precision=tier)
         before = _build.DIRECT.launches
         got = kernel_matvec(y, y, b, **kw)
         per_call = _build.DIRECT.launches - before
+        check(per_call == 1, f"solver path {name} E={e} {tier}: "
+              f"{per_call} launches, not one")
         ref = kernel_matvec_torch(y, y, b, **kw)
         err, rel = compare(got, ref)
-        check(rel <= KERNEL_TOL["float32"],
-              f"solver path {name} E={e}: kernel vs plain {rel:.3e}")
+        check(rel <= KERNEL_TOL[tier],
+              f"solver path {name} E={e} {tier}: kernel vs plain {rel:.3e}")
         del got, ref
         ms = time_ms(lambda: kernel_matvec(y, y, b, **kw), 3)
         plain_ms = time_ms(lambda: kernel_matvec_torch(y, y, b, **kw), 1)
         n, d = y.shape
         bound, bound_by, engine = bound_ms(n, n, d, e, "direct", False,
-                                           "float32", sfu_rate)
+                                           tier, sfu_rate)
         what = "Nystrom sketch" if e > 1 else "Krylov matvec"
-        print(f"phase 5: direct kernel, {what} on {name} E={e} [float32]: "
+        print(f"phase 5: direct kernel, {what} on {name} E={e} [{tier}]: "
               f"{ms:.4f} ms in {per_call} launches, plain {plain_ms:.4f} ms,"
               f" bound {bound:.4f} ms ({engine}), max_abs_err vs plain "
               f"{err:.3e} [{card}]")
         entries.append(dict(
-            name="direct", route="cuda", source=SOURCE,
+            name="direct", route="cuda",
+            source=WIDE_SOURCE if e > 8 else SOURCE,
             replaces=REPLACES["direct"], launches=launches[
                 _build.DIRECT.symbol],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=None,
-            at=f"{name}, solver path, E={e}", precision="float32",
+            at=f"{name}, solver path, E={e}", precision=tier,
             bound_engine=engine, kernel_device_ms=None,
-            launches_per_call=per_call))
+            launches_per_call=per_call, wide_mode=e > 8))
         del y, b
         torch.cuda.empty_cache()
     return records, datasets
@@ -1403,11 +1581,41 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
                       f"{record['bit_identical_to_single_card']} (max abs "
                       f"diff {record['max_abs_diff_to_single_card']:.3e}) "
                       f"[{card}]")
+        # The sharded Nystrom build: one ring product with E = rank, one
+        # launch of the wide mode per ring chunk.
+        from kmb_tpu_torch.algorithms import torch_sharded
+
+        real_fit = torch_sharded.ShardedSolverCG.fit
+        fit_launches = []
+
+        def counted_fit(self):
+            before = (_build.DIRECT.launches, _build.DIRECT.wide_launches)
+            try:
+                return real_fit(self)
+            finally:
+                fit_launches.append(
+                    (_build.DIRECT.launches - before[0],
+                     _build.DIRECT.wide_launches - before[1]))
+
         for label, name, args, query, limit in SHARDED_SOLVERS:
             arrays = datasets[name]
-            (row,) = run_on_arrays(definition("torch_sharded",
-                                              "ShardedSolverCG", arrays,
-                                              args, query), arrays, runs=2)
+            fit_launches.clear()
+            torch_sharded.ShardedSolverCG.fit = counted_fit
+            try:
+                (row,) = run_on_arrays(definition("torch_sharded",
+                                                  "ShardedSolverCG", arrays,
+                                                  args, query), arrays,
+                                       runs=2)
+            finally:
+                torch_sharded.ShardedSolverCG.fit = real_fit
+            if args.get("precond_rank"):
+                chunks = row.attrs["n_chips"]   # ring chunks per rank
+                check(fit_launches == [(chunks, chunks)] * 2,
+                      f"{label}: sketch launches (all, wide) per fit "
+                      f"{fit_launches}, not one per ring chunk ({chunks})")
+                print(f"phase 7: {label}: sketch launches per fit "
+                      f"{fit_launches[0][0]}, all of the wide mode, "
+                      f"{chunks} ring chunk(s)")
             check(np.all(np.isfinite(row.result))
                   and row.result.shape == arrays["source_signal"].shape,
                   f"{label}: result not finite or misshapen")

@@ -33,8 +33,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "product.cu"   # the C entry points
 SOURCES = (SOURCE, *(CSRC / f"small_d_{dp}_{scheme}.cu" for dp in (3, 8)
                      for scheme in ("direct", "flash")),
-           CSRC / "large_d_tf32.cu", CSRC / "large_d_bf16.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "small_d.cuh", CSRC / "large_d.cuh")
+           CSRC / "large_d_tf32.cu", CSRC / "large_d_bf16.cu",
+           # The wide-signal mode (E > 8).
+           *(CSRC / f"small_d_wide_{dp}_{tier}.cu" for dp in (3, 8)
+             for tier in ("tf32", "bf16")),
+           CSRC / "large_d_wide_tf32.cu", CSRC / "large_d_wide_bf16.cu")
+HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "wide.cuh",
+           CSRC / "small_d.cuh", CSRC / "small_d_wide.cuh",
+           CSRC / "large_d.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -148,12 +154,12 @@ def load_library() -> ctypes.CDLL:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            # n, n_ok, m_eff, d, nc, kernel, diag, shift, splits, bf16, then
-            # the stream.
-            ints = [i32] * 10 + [ptr]
-            lib.kmb_direct_matvec.argtypes = [ptr] * 7 + ints
+            # n, n_ok, m_eff, d, nc, kernel, diag, shift, splits, bf16, ldb,
+            # eblocks, then the stream.
+            ints = [i32] * 12 + [ptr]
+            lib.kmb_direct_matvec.argtypes = [ptr] * 8 + ints
             lib.kmb_direct_matvec.restype = i32
-            lib.kmb_flash_matvec.argtypes = [ptr] * 8 + ints
+            lib.kmb_flash_matvec.argtypes = [ptr] * 9 + ints
             lib.kmb_flash_matvec.restype = i32
             # d, nc, kernel, flash, den, bf16 -> rows, blocks per SM.
             lib.kmb_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)] * 2
@@ -178,13 +184,16 @@ def plan(d, nc, kernel, flash, den, bf16) -> tuple[int, int]:
 
 
 class CudaKernel:
-    """One C entry point of the kernel library, with a launch counter."""
+    """One C entry point of the kernel library, with launch counters:
+    `launches` counts every launch, `wide_launches` those of the wide
+    mode (a signal of more than 8 columns on the tensor cores)."""
 
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
+        self.wide_launches = 0
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, wide: bool = False) -> None:
         lib = load_library()
         code = getattr(lib, self.symbol)(*args)
         if code != 0:
@@ -192,6 +201,7 @@ class CudaKernel:
                 f"{self.symbol} launch failed: CUDA error {code} "
                 f"({lib.kmb_error_string(code).decode()})")
         self.launches += 1
+        self.wide_launches += int(wide)
 
 
 DIRECT = CudaKernel("kmb_direct_matvec")
@@ -202,3 +212,4 @@ KERNELS = (DIRECT, FLASH)
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+        kernel.wide_launches = 0

@@ -72,7 +72,10 @@ template <> struct KernelMap<kExponential> {
 struct Args {
   const void* x;     // (n, d) target points: f32, or bf16 in the large-D bf16 form
   const void* y;     // (m, d) source points, as x
-  const float* b;    // (m, nc) signal
+  const float* b;    // (m, nc) signal (narrow mode, nc <= 8)
+  const void* bt;    // wide mode: (E blocks x nc, ldb) transposed signal, f32 TF32 hi
+                     // parts or bf16 values (see wide.cuh)
+  const void* bt_lo; // wide mode, f32 tiers: the TF32 lo parts
   const float* xsq;  // (n,) |x|^2, large-D squared-distance kernels only
   const float* ysq;  // (m,) |y|^2
   float* out;        // (splits, n, nc) num, or acc for the flash kernel
@@ -81,6 +84,7 @@ struct Args {
   int n, n_ok, m_eff;
   int words;         // 32-bit words per point row (padded coordinates)
   int diag, shift;
+  int ldb;           // wide mode: source columns per row of bt (m padded to 8)
 };
 
 // The source columns [begin, end) of split blockIdx.x: equal shares rounded
@@ -230,19 +234,28 @@ struct Launch {
 // What selects an instantiation.
 struct Shape {
   int d;       // small D: padded coordinates (3 or 8); large D: words per row
-  int nc;      // signal columns: 1, 2, 4 or 8
+  int nc;      // signal columns: 1, 2, 4 or 8; above 8 the wide mode's
+               // columns per block of the grid's z dimension (16, 32, 64)
   int kernel;  // KernelId
   bool flash, den, bf16;
   bool large;  // D > 8: the tensor-core form
 };
 
-// Defined in small_d_{3,8}_{direct,flash}.cu and large_d_{tf32,bf16}.cu;
-// each returns false for a shape it has no instantiation of.
+// Defined in small_d_{3,8}_{direct,flash}.cu and large_d_{tf32,bf16}.cu
+// (signals of 1, 2, 4 or 8 columns), small_d_wide_{3,8}_{tf32,bf16}.cu and
+// large_d_wide_{tf32,bf16}.cu (the wide mode, nc > 8); each returns false
+// for a shape it has no instantiation of.
 bool small_d_3_direct_launch(const Shape& s, Launch* out);
 bool small_d_3_flash_launch(const Shape& s, Launch* out);
 bool small_d_8_direct_launch(const Shape& s, Launch* out);
 bool small_d_8_flash_launch(const Shape& s, Launch* out);
 bool large_d_tf32_launch(const Shape& s, Launch* out);
 bool large_d_bf16_launch(const Shape& s, Launch* out);
+bool small_d_wide_3_tf32_launch(const Shape& s, Launch* out);
+bool small_d_wide_3_bf16_launch(const Shape& s, Launch* out);
+bool small_d_wide_8_tf32_launch(const Shape& s, Launch* out);
+bool small_d_wide_8_bf16_launch(const Shape& s, Launch* out);
+bool large_d_wide_tf32_launch(const Shape& s, Launch* out);
+bool large_d_wide_bf16_launch(const Shape& s, Launch* out);
 
 }  // namespace kmb

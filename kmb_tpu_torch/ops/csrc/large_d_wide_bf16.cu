@@ -1,0 +1,4 @@
+// The large-D tile in the wide-signal mode, one bf16 pass (bfloat16 tier).
+#define KMB_BF16 1
+#define KMB_WIDE 1
+#include "large_d.cuh"

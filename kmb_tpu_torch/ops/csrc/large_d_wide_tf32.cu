@@ -1,0 +1,4 @@
+// The large-D tile in the wide-signal mode, 3xTF32 (float32 tiers).
+#define KMB_BF16 0
+#define KMB_WIDE 1
+#include "large_d.cuh"

@@ -21,7 +21,8 @@
 //     i.e. j == i + shift, is skipped.
 //
 // The work is N*M pairs, each one form (D multiply-adds), one
-// transcendental and E multiply-adds; the bytes moved are only
+// transcendental and E multiply-adds (on the FP32 units up to 8 columns, on
+// the tensor cores above); the bytes moved are only
 // (N + M) * D + M * E + N * E values, so both kernels are bound by
 // operations.  Each comes in two forms, chosen by D:
 //
@@ -33,6 +34,19 @@
 //     product on the tensor cores (3xTF32 in the float32 tiers, bf16 in the
 //     bfloat16 tier) with the map, masks and signal product applied to the
 //     accumulator fragments in registers.
+//
+// and in two modes, chosen by E:
+//
+//   E <= 8 (padded to 1, 2, 4 or 8 columns): the E multiply-adds of a pair
+//     run on the FP32 units, from a staged signal record per source column.
+//   E > 8, the wide mode (wide.cuh; small_d_wide.cuh and large_d.cuh with
+//     KMB_WIDE): the kernel values of a tile are the A operand of wgmma
+//     products with a staged signal tile, on the tensor cores (3xTF32 in
+//     the float32 tiers, one bf16 pass in the bfloat16 tier), for blocks of
+//     16, 32 or 64 signal columns (16 at large D) along the grid's z
+//     dimension, so the kernel values are computed once per block, in one
+//     launch for any E.  The wrapper stages the signal transposed, padded
+//     to whole blocks, TF32-split or rounded to bf16.
 //
 // Both: when the row blocks alone would leave SMs idle (N = 10^4 gives 79
 // blocks of 128 rows for 132 SMs), the wrapper splits the source range over
@@ -56,10 +70,16 @@ namespace {
 // The instantiation for a shape, its shared memory raised above the 48 KB
 // default where it needs more.
 cudaError_t select(const Shape& s, Launch* l) {
-  const bool found =
-      s.large ? (s.bf16 ? large_d_bf16_launch(s, l) : large_d_tf32_launch(s, l))
-              : (small_d_3_direct_launch(s, l) || small_d_3_flash_launch(s, l) ||
-                 small_d_8_direct_launch(s, l) || small_d_8_flash_launch(s, l));
+  bool found;
+  if (s.nc > 8) {
+    found = s.large ? (s.bf16 ? large_d_wide_bf16_launch(s, l) : large_d_wide_tf32_launch(s, l))
+                    : (small_d_wide_3_tf32_launch(s, l) || small_d_wide_3_bf16_launch(s, l) ||
+                       small_d_wide_8_tf32_launch(s, l) || small_d_wide_8_bf16_launch(s, l));
+  } else {
+    found = s.large ? (s.bf16 ? large_d_bf16_launch(s, l) : large_d_tf32_launch(s, l))
+                    : (small_d_3_direct_launch(s, l) || small_d_3_flash_launch(s, l) ||
+                       small_d_8_direct_launch(s, l) || small_d_8_flash_launch(s, l));
+  }
   if (!found) return cudaErrorInvalidValue;
   if (l->smem > 48 * 1024) {
     return cudaFuncSetAttribute(l->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, l->smem);
@@ -75,28 +95,38 @@ Shape make_shape(int d, int nc, int kernel, bool flash, bool den, bool bf16) {
   return s;
 }
 
-int launch(const Shape& s, const Args& a, int splits, cudaStream_t stream) {
+// eblocks: blocks of s.nc signal columns along the grid's z dimension (the
+// wide mode; 1 otherwise).
+int launch(const Shape& s, const Args& a, int splits, int eblocks, cudaStream_t stream) {
   if (a.n <= 0) return cudaSuccess;
   Launch l;
   cudaError_t err = select(s, &l);
   if (err != cudaSuccess) return err;
   const long long row_blocks = (a.n + l.rows - 1) / l.rows;
-  if (splits < 1 || row_blocks > 65535) return cudaErrorInvalidValue;
+  if (splits < 1 || row_blocks > 65535 || eblocks < 1 || eblocks > 65535 ||
+      (s.nc <= 8 && eblocks != 1) || (s.nc > 8 && (a.ldb < a.m_eff || a.ldb % 8 != 0))) {
+    return cudaErrorInvalidValue;
+  }
   Args args = a;
   args.words = s.d;
   void* params[] = {&args};
-  err = cudaLaunchKernel(l.fn, dim3(splits, (unsigned)row_blocks), dim3(l.threads), params,
-                         l.smem, stream);
+  err = cudaLaunchKernel(l.fn, dim3(splits, (unsigned)row_blocks, eblocks), dim3(l.threads),
+                         params, l.smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-Args make_args(const void* x, const void* y, const float* b, const float* xsq,
-               const float* ysq, float* out, float* aux0, float* aux1, int n, int n_ok,
-               int m_eff, int diag, int shift) {
+// b: the signal, (m, nc) f32 in the narrow mode; in the wide mode the
+// transposed signal's hi parts (f32) or values (bf16), with b_lo its TF32
+// lo parts (f32 tiers) and ldb its row length.
+Args make_args(const void* x, const void* y, const void* b, const void* b_lo,
+               const float* xsq, const float* ysq, float* out, float* aux0, float* aux1,
+               int n, int n_ok, int m_eff, int diag, int shift, int ldb) {
   Args a;
-  a.x = x; a.y = y; a.b = b; a.xsq = xsq; a.ysq = ysq;
+  a.x = x; a.y = y; a.xsq = xsq; a.ysq = ysq;
+  a.b = static_cast<const float*>(b); a.bt = b; a.bt_lo = b_lo;
   a.out = out; a.aux0 = aux0; a.aux1 = aux1;
   a.n = n; a.n_ok = n_ok; a.m_eff = m_eff; a.words = 0; a.diag = diag; a.shift = shift;
+  a.ldb = ldb;
   return a;
 }
 
@@ -120,25 +150,27 @@ int kmb_plan(int d, int nc, int kernel, int flash, int den, int bf16, int* rows,
 
 // Both return a cudaError_t: 0 when the launch was accepted (or n == 0).
 // x, y: the staged points (f32; bf16 at large D in the bfloat16 tier); d is
-// their padded width.  out / acc is (splits, n, nc); den (may be null), mx and l
-// are (splits, n).
-int kmb_direct_matvec(const void* x, const void* y, const float* b, const float* xsq,
-                      const float* ysq, float* out, float* den, int n, int n_ok, int m_eff,
-                      int d, int nc, int kernel, int diag, int shift, int splits, int bf16,
-                      void* stream) {
-  const kmb::Args a =
-      kmb::make_args(x, y, b, xsq, ysq, out, den, nullptr, n, n_ok, m_eff, diag, shift);
+// their padded width.  nc <= 8: b is the (m, nc) signal, b_lo null, ldb 0
+// and eblocks 1.  nc > 8 (the wide mode): b and b_lo the transposed signal
+// (eblocks * nc, ldb) as the wrapper stages it.  out / acc is
+// (splits, n, eblocks * nc); den (may be null), mx and l are (splits, n).
+int kmb_direct_matvec(const void* x, const void* y, const void* b, const void* b_lo,
+                      const float* xsq, const float* ysq, float* out, float* den, int n,
+                      int n_ok, int m_eff, int d, int nc, int kernel, int diag, int shift,
+                      int splits, int bf16, int ldb, int eblocks, void* stream) {
+  const kmb::Args a = kmb::make_args(x, y, b, b_lo, xsq, ysq, out, den, nullptr, n, n_ok,
+                                     m_eff, diag, shift, ldb);
   return kmb::launch(kmb::make_shape(d, nc, kernel, false, den != nullptr, bf16), a, splits,
-                     static_cast<cudaStream_t>(stream));
+                     eblocks, static_cast<cudaStream_t>(stream));
 }
 
-int kmb_flash_matvec(const void* x, const void* y, const float* b, const float* xsq,
-                     const float* ysq, float* acc, float* mx, float* l, int n, int n_ok,
-                     int m_eff, int d, int nc, int kernel, int diag, int shift, int splits,
-                     int bf16, void* stream) {
-  const kmb::Args a =
-      kmb::make_args(x, y, b, xsq, ysq, acc, mx, l, n, n_ok, m_eff, diag, shift);
-  return kmb::launch(kmb::make_shape(d, nc, kernel, true, false, bf16), a, splits,
+int kmb_flash_matvec(const void* x, const void* y, const void* b, const void* b_lo,
+                     const float* xsq, const float* ysq, float* acc, float* mx, float* l,
+                     int n, int n_ok, int m_eff, int d, int nc, int kernel, int diag, int shift,
+                     int splits, int bf16, int ldb, int eblocks, void* stream) {
+  const kmb::Args a = kmb::make_args(x, y, b, b_lo, xsq, ysq, acc, mx, l, n, n_ok, m_eff,
+                                     diag, shift, ldb);
+  return kmb::launch(kmb::make_shape(d, nc, kernel, true, false, bf16), a, splits, eblocks,
                      static_cast<cudaStream_t>(stream));
 }
 

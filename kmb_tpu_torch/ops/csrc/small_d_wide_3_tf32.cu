@@ -1,0 +1,6 @@
+// The small-D loop at 3 padded coordinates in the wide-signal mode,
+// 3xTF32 (float32 tiers).
+#define KMB_DP 3
+#define KMB_BF16 0
+#define KMB_SMALL_D_WIDE_LAUNCH small_d_wide_3_tf32_launch
+#include "small_d_wide.cuh"

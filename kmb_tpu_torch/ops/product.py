@@ -7,7 +7,12 @@ The twin of kmb_tpu.ops.product.  Three functions:
   any float dtype (float64 serves as the ground truth) and on any device.
 - `kernel_matvec_cuda`: the same contract on the two hand-written CUDA
   kernels of `csrc/` (the direct kernel and the base-2 flash kernel,
-  entry points in `csrc/product.cu`).  CUDA float32 tensors only.
+  entry points in `csrc/product.cu`).  CUDA float32 tensors only.  One
+  launch per call at any signal width: up to 8 columns the signal
+  products run on the FP32 units; above 8 (the wide mode) each tile of
+  kernel values is multiplied by a staged signal tile on the tensor cores,
+  in blocks of 16, 32 or 64 columns at D <= 8 and 16 at D > 8 along the
+  launch's grid (`signal_plan`, `stage_wide_signal`).
 - `kernel_matvec`: the dispatch.  CUDA tensors go to the kernels, CPU
   tensors to the plain version; nothing falls back from one to the other.
 
@@ -27,9 +32,10 @@ The contract (kmb_tpu/ops/product.py:663-810):
   direct scheme (den only when something reads row sums) or (acc, m, l) for
   flash, with m a base-2 logit.
 - `precision`: "float32" and "float32x3", f32-accurate (the kernel forms
-  large-D dot products in 3xTF32 on the tensor cores, see `tf32_split`);
-  "bfloat16", where the signal and each kernel value are rounded to bf16
-  before the product, with f32 accumulation.  The points are rounded to
+  large-D dot products, and wide signal products, in 3xTF32 on the tensor
+  cores, see `tf32_split`); "bfloat16", where the signal and each kernel
+  value are rounded to bf16 before the product, with f32 accumulation.
+  The points are rounded to
   bf16 only at D > 8, where the form runs on the tensor cores; at D <= 8
   the form takes the f32 points, as the Pallas kernel's VPU form does
   (kmb_tpu/ops/product.py:525-538).
@@ -53,7 +59,12 @@ INT32_MAX = 2**31 - 1
 # Kernel ids of csrc/common.cuh (enum KernelId).
 _CUDA_KERNEL_ID = {"gaussian": 0, "absolute-exponential": 1,
                    "inverse-distance": 2, "exponential": 3}
-_SIGNAL_CHUNK = 8  # signal columns per launch (the kernels take 1, 2, 4, 8)
+_NARROW_WIDTHS = (1, 2, 4, 8)  # signal columns of the narrow mode
+_WIDE_BLOCKS = (16, 32, 64)     # signal columns per E block, wide mode, D <= 8
+_WIDE_BLOCK_LARGE_D = 16        # ... at D > 8 (csrc/large_d.cuh, kWideEB)
+# The wide mode's float32 tiers: the order of the source columns within
+# each group of 8 in the staged signal (csrc/wide.cuh).
+WIDE_TF32_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 _MIN_FILL = 0.9  # column splits fill at least this share of every wave
 _MIN_SPLIT_COLUMNS = 512  # ... but give no split fewer source columns
 
@@ -305,13 +316,64 @@ def _stage_points(t, scale, *, large, bf16):
     return t.contiguous(), torch.sum(tf * tf, dim=1)
 
 
-def _launch(kernel, points, b, outs, *, n_ok, m_eff, kernel_id, diag,
-            shift, splits, bf16):
-    """Check the staged operands and launch one kernel on them."""
+def signal_plan(e, large):
+    """(columns per block, blocks) of an E-column signal in one launch.
+
+    E <= 8: one block of 1, 2, 4 or 8 columns, the narrow mode.  Above, the
+    wide mode, blocks along the grid's z dimension: at D <= 8 of 16, 32 or
+    64 columns (the narrowest that holds E, else 64: the float32 tiers keep
+    four register sets of a block's columns, a step's product, the small
+    terms, the group's and the running sums), at D > 8 of 16 (its signal
+    tiles share shared memory with the form's stages).  The kernel values
+    are computed once per block.
+    """
+    if e <= 8:
+        return next(w for w in _NARROW_WIDTHS if e <= w), 1
+    if large:
+        eb = _WIDE_BLOCK_LARGE_D
+    else:
+        eb = next((w for w in _WIDE_BLOCKS if e <= w), _WIDE_BLOCKS[-1])
+    return eb, -(-e // eb)
+
+
+def stage_wide_signal(b, width, bf16):
+    """The wide mode's signal operand: b (M, E) -> (hi, lo, ldb).
+
+    b transposed to (width, ldb): zero-padded to `width` columns (whole E
+    blocks) and to ldb = M rounded up to 8 source columns.  bfloat16: the
+    values as bf16 (b is bf16-rounded already), lo None.  Float32 tiers:
+    the source columns of each group of 8 in the order WIDE_TF32_ORDER
+    (the A fragment of a TF32 k8 step holds a thread's kernel values of
+    columns 2t and 2t + 1 at k = t and t + 4), split into TF32 parts
+    (`tf32_split`) for the 3xTF32 product.
+    """
+    m, e = b.shape
+    ldb = -(-m // 8) * 8
+    bt = F.pad(b.T, (0, ldb - m, 0, width - e))
+    if bf16:
+        return bt.to(torch.bfloat16).contiguous(), None, ldb
+    order = torch.tensor(WIDE_TF32_ORDER, device=b.device)
+    index = (torch.arange(0, ldb, 8, device=b.device)[:, None]
+             + order).reshape(-1)
+    hi, lo = tf32_split(bt[:, index])
+    return hi, lo, ldb
+
+
+def _launch(kernel, points, signal, outs, *, n_ok, m_eff, kernel_id, diag,
+            shift, splits, bf16, ldb, eblocks):
+    """Check the staged operands and launch one kernel on them.
+
+    signal: (b, None) in the narrow mode, b (M, nc); the wide mode's
+    (hi, lo) of `stage_wide_signal` (ldb > 0).
+    """
     (x, xsq), (y, ysq) = points
+    b, b_lo = signal
+    wide = ldb > 0
     point_dtype = torch.bfloat16 if bf16 and x.shape[1] > 8 else torch.float32
+    signal_dtype = torch.bfloat16 if bf16 and wide else torch.float32
     for name, t, dtype in (("x", x, point_dtype), ("y", y, point_dtype),
-                           ("b", b, torch.float32),
+                           ("b", b, signal_dtype),
+                           ("b_lo", b_lo, torch.float32),
                            ("xsq", xsq, torch.float32),
                            ("ysq", ysq, torch.float32),
                            *(("out", o, torch.float32) for o in outs)):
@@ -321,12 +383,13 @@ def _launch(kernel, points, b, outs, *, n_ok, m_eff, kernel_id, diag,
                 f"staged operand {name} must be a contiguous {dtype} CUDA "
                 "tensor")
     n, d = x.shape
+    nc = b.shape[0] // eblocks if wide else b.shape[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        kernel(_ptr(x), _ptr(y), _ptr(b), _ptr(xsq), _ptr(ysq),
+        kernel(_ptr(x), _ptr(y), _ptr(b), _ptr(b_lo), _ptr(xsq), _ptr(ysq),
                *(_ptr(o) for o in outs),
-               n, n_ok, m_eff, d, b.shape[1], kernel_id, int(diag), shift,
-               splits, int(bf16), stream)
+               n, n_ok, m_eff, d, nc, kernel_id, int(diag), shift,
+               splits, int(bf16), ldb, eblocks, stream, wide=wide)
 
 
 def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
@@ -342,9 +405,9 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     x (N, D), y (M, D) and b (M, E) or None are float32 tensors on one CUDA
     device.  The wrapper scales (and, at bfloat16 with D > 8, rounds) the
     points, pads D, computes the norms of the large-D form, folds the
-    limits into counts, pads the signal width to what the kernels take,
-    and merges the partial states of column splits.
-    Signals wider than 8 columns run as several launches of 8.
+    limits into counts, stages the signal (padded to 1, 2, 4 or 8 columns,
+    or for E > 8 as `stage_wide_signal` does), launches one kernel and
+    merges the partial states of column splits.
     """
     spec = get_kernel(kernel_name)
     _check_precision(precision)
@@ -393,46 +456,37 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    outs, mx, l, den = [], None, None, None
-    for c0 in range(0, e, _SIGNAL_CHUNK):
-        chunk = bs[:, c0:c0 + _SIGNAL_CHUNK]
-        width = chunk.shape[1]
-        nc = 1 if width == 1 else 2 if width == 2 else 4 if width <= 4 else 8
-        chunk = F.pad(chunk, (0, nc - width)).contiguous()
-        want_den = needs_den and c0 == 0 and not use_flash
-        splits = 1
-        if n:
-            rows, per_sm = _plan(device.index, dp, nc, kernel_id, use_flash,
-                                 want_den, bf16)
-            splits = choose_splits(-(-n // rows),
-                                   per_sm * _sm_count(device.index), m_eff)
-        launch = dict(n_ok=n_ok, m_eff=m_eff, kernel_id=kernel_id, diag=md,
-                      shift=shift, splits=splits, bf16=bf16)
-        out = new(splits, n, nc)
-        if use_flash:
-            state = (new(splits, n, 1), new(splits, n, 1))
-            if n:
-                _launch(_build.FLASH, (xp, yp), chunk, (out, *state),
-                        **launch)
-            out, *state = merge_flash_states(out, *state)
-            if c0 == 0:   # m and l do not depend on the signal
-                mx, l = state
-        else:
-            part = new(splits, n, 1) if want_den else None
-            if n:
-                _launch(_build.DIRECT, (xp, yp), chunk, (out, part),
-                        **launch)
-            out, part = merge_direct_states(out, part)
-            if c0 == 0:
-                den = part
-        outs.append(out[:, :width])
-    acc = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    nc, eblocks = signal_plan(e, large)
+    if nc > 8:
+        hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16)
+        signal = (hi, lo)
+    else:
+        signal, ldb = (F.pad(bs, (0, nc - e)).contiguous(), None), 0
+    splits = 1
+    if n:
+        rows, per_sm = _plan(device.index, dp, nc, kernel_id, use_flash,
+                             needs_den, bf16)
+        splits = choose_splits(-(-n // rows) * eblocks,
+                               per_sm * _sm_count(device.index), m_eff)
+    launch = dict(n_ok=n_ok, m_eff=m_eff, kernel_id=kernel_id, diag=md,
+                  shift=shift, splits=splits, bf16=bf16, ldb=ldb,
+                  eblocks=eblocks)
+    out = new(splits, n, nc * eblocks)
 
     if use_flash:
+        state = (new(splits, n, 1), new(splits, n, 1))
+        if n:
+            _launch(_build.FLASH, (xp, yp), signal, (out, *state), **launch)
+        acc, mx, l = merge_flash_states(out, *state)
+        acc = acc[:, :e]
         if deferred:
             return acc, mx, l
         return acc / l
-    return _finalize_direct(acc, den, needs_den=needs_den,
+    den = new(splits, n, 1) if needs_den else None
+    if n:
+        _launch(_build.DIRECT, (xp, yp), signal, (out, den), **launch)
+    num, den = merge_direct_states(out, den)
+    return _finalize_direct(num[:, :e], den, needs_den=needs_den,
                             normalize_rows=normalize_rows,
                             density_estimation=density_estimation,
                             deferred=deferred)

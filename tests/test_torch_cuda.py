@@ -91,6 +91,45 @@ def test_signal_widths_match_plain_version(e, d, normalize, cuda_points):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["float32", "float32x3", "bfloat16"])
+@pytest.mark.parametrize("e", [9, 16, 64, 256, 512])
+@pytest.mark.parametrize("d", [3, 8, 64])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_wide_signals_match_plain_version(tier, e, d, normalize,
+                                          cuda_points):
+    # The wide mode (E > 8): one launch, the signal products on the tensor
+    # cores.  Gaussian: the flash kernel when normalised.
+    x, y, b = cuda_points(301, 1203, d, e)
+    kw = dict(kernel_name="gaussian", normalize_rows=normalize,
+              precision=tier)
+    kernel = _build.FLASH if normalize else _build.DIRECT
+    before, wide = kernel.launches, kernel.wide_launches
+    got = kernel_matvec(x, y, b, **kw)
+    assert (kernel.launches - before, kernel.wide_launches - wide) == (1, 1)
+    _close(got, kernel_matvec_torch(x, y, b, **kw), TOL[tier])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ALL_KERNELS)
+@pytest.mark.parametrize("d", [3, 130])
+def test_wide_signals_with_limits_and_deferred_states(kernel, d,
+                                                      cuda_points):
+    x, y, b = cuda_points(517, 1203, d, 40)
+    for normalize in (False, True):
+        kw = dict(kernel_name=kernel, normalize_rows=normalize,
+                  deferred=True, row_offset=40, col_offset=3,
+                  row_limit=40 + 200, col_limit=3 + 700, mask_diagonal=True)
+        for g, w in zip(kernel_matvec(x, y, b, **kw),
+                        kernel_matvec_torch(x, y, b, **kw)):
+            if w is None:
+                assert g is None
+                continue
+            masked = w.abs() >= 1e29
+            assert torch.equal(g.abs() >= 1e29, masked)
+            _close(g[~masked], w[~masked])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [3, 64, 130])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_limits_ending_inside_a_tile(d, normalize, cuda_points):
@@ -129,11 +168,12 @@ def test_large_logits_on_the_tensor_cores(tier, cuda_points):
 @pytest.mark.parametrize("normalize,which", [(False, "DIRECT"),
                                              (True, "FLASH")])
 def test_each_launch_is_counted(normalize, which, cuda_points):
-    x, y, b = cuda_points(300, 700, 3, 11)  # 11 columns: two launches
+    x, y, b = cuda_points(300, 700, 3, 11)  # 11 columns: the wide mode
     kernel = getattr(_build, which)
-    before = kernel.launches
+    before, wide = kernel.launches, kernel.wide_launches
     kernel_matvec(x, y, b, kernel_name="gaussian", normalize_rows=normalize)
-    assert kernel.launches == before + 2
+    assert kernel.launches == before + 1
+    assert kernel.wide_launches == wide + 1
 
 
 @pytest.mark.cuda
@@ -294,7 +334,7 @@ def test_nystrom_sketch_on_the_kernel_matches_plain_version(solver_problem):
     u, lam = solve.nystrom_factors(
         solve._default_matvec(y, kernel_name=kernel, precision="float32"),
         omega)
-    assert _build.DIRECT.launches - before == 256 // 8
+    assert _build.DIRECT.launches - before == 1
     pu, plam = solve.nystrom_factors(_plain_matvec(y, kernel), omega)
     # The factors of two f32 sketches: U diag(lam) U^T within 1e-4 of
     # lam_0 (tests/test_torch_solve.py's bound for two packages).
