@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA card (sm_90a):
 
 `--phases 7,8` (any comma-separated subset; default all) runs only those
 phases: phase 1 always runs, phase 8 brings phase 7 (its single-card
-baselines), phase 10 brings phase 8 (its processes), and a phase makes the datasets and truths it needs when the
-phase that makes them is not run.
+baselines), phase 10 brings phase 8 (its processes), and a phase makes
+the datasets and truths it needs when the phase that makes them is not
+run.
 
 Phases, each of which must pass:
 
@@ -26,17 +27,19 @@ Phases, each of which must pass:
    ending inside a tile), and large logits at D = 4 (small-D loop) and
    D = 64 (tensor cores).  One long case, M = 131072 and E = 256, is held
    against float64: the wide mode no less accurate than the same signal
-   in the narrow mode.  The E = 512 shape is timed in each tier.
+   in the narrow mode.  The large-D form at the diagonal of equal points
+   (D = 256, 20000 points, abs-exp) is held to the plain version in both
+   modes, and the bf16 large-D flash kernel over eight draws at N = 300,
+   M = 411, D = 784 (each draw's distance to float64 printed).  The
+   E = 512 shape is timed in each tier.
 3. The main path, through the port's runner (`run_on_arrays`, runs=2), on
    five datasets in three tiers, each held against its float64 truth
    computed on the card; every kernel launch is counted, and the D256 E16
    product must take one launch of the wide mode per query.
 4. Each kernel timed at the main path's shapes, in each tier, beside its
    plain version, its bound and (for the flash kernel) the library's
-   attention call, and held against the plain version there too (the
-   D256 E16 shape against the narrow mode on the same inputs: both modes'
-   large-D form cancels at the diagonal of its same points further from
-   the plain version than 1e-4, ROADMAP Queue 3).  `ms` is the wrapper's
+   attention call, and held against the plain version there too.  `ms`
+   is the wrapper's
    call (staging, launches, merge) with CUDA events; `kernel_device_ms` is
    the kernel alone, from torch.profiler.
 5. The solver path, through the port's runner (runs=2): Nystrom PCG,
@@ -46,13 +49,15 @@ Phases, each of which must pass:
    the card and held under its limit (a dense answer: its backward error
    against the float64 matrix of the plain product); every iteration must
    have launched the direct kernel, each Nystrom build exactly once (the
-   sketch, one launch of the wide mode), and the plain version may run
+   sketch, one launch of the wide mode with one E block: each kernel
+   value computed once), and the plain version may run
    only in float64 (truth, residuals and that matrix); the Nystrom PCG
    takes no more than max(3, 10%) beyond the 142 iterations recorded
    before the wide mode (its best residual came at 82, the stall window
    ended it).  The solver path's kernel
-   shapes (the Nystrom sketch at E = 256 in each tier, the E = 1 matvec
-   at M = 10^4) are held against the plain version and timed.
+   shapes (the Nystrom sketch at E = 256 in each tier, one launch of one E
+   block; the same size at E = 64 and 16; the E = 1 matvec at M = 10^4)
+   are held against the plain version and timed.
 6. The approximate path, through the port's runner (runs=2): the
    block-low-rank product (fixed rank and epsilon), Nystrom and random
    features (product and attention, materialised and streamed), the
@@ -73,11 +78,12 @@ Phases, each of which must pass:
    runner (runs=2), each held against its float64 truth under phase 3's
    and phase 5's limits, the products also against the single-card
    TorchProduct answer, the PCG iterations within max(3, 10%) of the
-   single-card TorchSolverCG's, its sketch one launch per ring chunk.  Then the per-shard arithmetic of four
-   cards on this one: the ring's chunks and fold for four virtual ranks,
-   the all-pairs blocks on a virtual 2 x 2 grid, against the single-card
-   product and the float64 truth; and the ring chunk's kernel shapes at
-   p = 4 against the plain version, timed.
+   single-card TorchSolverCG's, its sketch one launch per ring chunk.
+   Then the per-shard arithmetic of four cards on this one: the ring's
+   chunks and fold for four virtual ranks, the all-pairs blocks on a
+   virtual 2 x 2 grid, against the single-card product and the float64
+   truth; and the ring chunk's kernel shapes at p = 4 against the plain
+   version, timed.
 8. Four cards (when the machine has them; otherwise a line says it was not
    run): four NCCL ranks, one process per card, run the ring and the 2 x 2
    all-pairs product on the cube, the sphere and attention and
@@ -88,9 +94,10 @@ Phases, each of which must pass:
    (single-card time / (4 x sharded time)) and, for the ring, the sum of
    its chunk kernels' times (CUDA events, the slowest rank's).
 9. The harness around the engines on one card, in a process of its own
-   (torch.profiler's CUDA records go missing in a process that has
-   launched many kernels since its last profiling session, as this one
-   has after phase 5): the runner's torch.profiler hook (KMB_PROFILE_DIR)
+   (torch.profiler's CUDA records went missing in this process after
+   phase 5 in earlier runs; here the hook is first tried once in it, and
+   either writes a trace with kernel events or refuses), after 10^5
+   launches there: the runner's torch.profiler hook (KMB_PROFILE_DIR)
    on TorchProduct float32 through `run_on_arrays` (runs=2) on the cube
    and attention, after the same run without it: one Chrome trace per
    query group,
@@ -170,11 +177,12 @@ MAIN_PATH = (
 # Datasets whose queries must run the wide mode (E > 8), one launch each.
 WIDE_MAIN_PATH = ("product-normal-D256-E16-M20000-N20000-absolute-exponential",)
 # Phase 5's single-card Nystrom PCG: its iterations with the sketch in
-# launches of 8 columns (PERF.md section 5).  Its best residual there, 1.569e-6, above the tolerance
-# 1e-6, came at iteration 82, and the stall window (60 iterations without
-# a new best) ended the solve: a preconditioner no worse takes no more
-# than max(3, 10%) beyond it, and one whose float32 floor lies below the
-# tolerance stops near iteration 82 instead.
+# launches of 8 columns (PERF.md section 5).  Its best residual there,
+# 1.569e-6, above the tolerance 1e-6, came at iteration 82, and the stall
+# window (60 iterations without a new best) ended the solve: a
+# preconditioner no worse takes no more than max(3, 10%) beyond it, and
+# one whose float32 floor lies below the tolerance stops near iteration 82
+# instead.
 NYSTROM_PCG_ITERATIONS = 142
 # The JAX package's bf16 tier on the same datasets: RMS(result - truth) /
 # RMS(truth) of its TPU records
@@ -336,6 +344,8 @@ SWEEP_RUNS = 3
 SWEEP_TOL = 1e-4
 SWEEP_CHECK_ROWS = 4096
 PHASE9_TIMEOUT = 900   # seconds for phase 9's process, start to report
+HOOK_PRIOR_LAUNCHES = 100_000   # launches before phase 9's hook, its process
+HOOK_DATASET = "product-cube-D3-E1-M1000-N1000-gaussian"
 
 REPLACES = {
     "direct": "kmb_tpu/ops/product.py:230 (_direct_kernel_body, "
@@ -344,9 +354,17 @@ REPLACES = {
              "pallas_call at :608)",
 }
 SOURCE = "kmb_tpu_torch/ops/csrc/product.cu"
-# The wide mode (E > 8, acc_mode="mxu" of the Pallas kernels): the entry
-# points of product.cu, its signal products in wide.cuh.
-WIDE_SOURCE = "kmb_tpu_torch/ops/csrc/wide.cuh"
+# The wide mode (E > 8, acc_mode="mxu" of the Pallas kernels) behind the
+# entry points of product.cu: at D <= 8 its own kernel, at D > 8 the
+# large-D tile with its signal product from wide.cuh.
+WIDE_SOURCE = {False: "kmb_tpu_torch/ops/csrc/small_d_wide.cuh",
+               True: "kmb_tpu_torch/ops/csrc/large_d.cuh"}
+
+
+def kernel_source(d, e):
+    """The source of the kernel a call of D coordinates and E signal
+    columns launches (the narrow mode's entry points for E <= 8)."""
+    return WIDE_SOURCE[d > 8] if e > 8 else SOURCE
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
 # TF32 and bf16 on the tensor cores, device memory bandwidth, and
@@ -379,8 +397,8 @@ MAIN_PATH_KERNELS = {
     ("large_d_kernel", "3,8,1,0,1"): "attention, bfloat16",
     ("large_d_wide_tf32", "1,0"): "D256 E16, float32 (3xTF32)",
     ("large_d_wide_bf16", "1,0"): "D256 E16, bfloat16",
-    ("small_d_wide_3_tf32", "0,64,0"): "Nystrom sketch E=256, float32",
-    ("small_d_wide_3_bf16", "0,64,0"): "Nystrom sketch E=256, bfloat16",
+    ("small_d_wide_3_tf32", "0,256,0"): "Nystrom sketch E=256, float32",
+    ("small_d_wide_3_bf16", "0,256,0"): "Nystrom sketch E=256, bfloat16",
 }
 # Kernel families of phase 1's report (a wide family: one source each).
 KERNEL_FAMILY = re.compile(
@@ -801,6 +819,50 @@ def kernels_vs_plain(dev, card, sfu_rate):
           f"mode: {errors}")
     del y, b, exact, wide, narrow, plain
 
+    # The large-D form at the diagonal of equal points (abs-exp, D = 256):
+    # the kernel within 1e-4 of the plain version in both modes.
+    arrays = make_arrays(WIDE_MAIN_PATH[0])
+    y = cuda(arrays["source_points"])
+    b = cuda(arrays["source_signal"])
+    kw = dict(kernel_name=arrays["kernel"])
+    plain = kernel_matvec_torch(y, y, b, **kw)
+    for mode, got in (
+            ("wide", kernel_matvec(y, y, b, **kw)),
+            ("narrow", torch.cat([kernel_matvec(y, y, b[:, c:c + 8]
+                                                .contiguous(), **kw)
+                                  for c in range(0, b.shape[1], 8)], 1))):
+        _, rel = compare(got, plain)
+        print(f"phase 2: D = 256 equal points, {mode} mode vs plain "
+              f"{rel:.3e} [{card}]")
+        check(rel <= KERNEL_TOL["float32"],
+              f"D = 256 equal points, {mode} mode: {rel:.3e}")
+    del y, b, plain, got
+
+    # The bf16 large-D flash kernel over eight draws whose outputs cancel
+    # (N = 300, M = 411, D = 784): held to the plain version at the bf16
+    # limit, each draw's distance to float64 printed.
+    for name in LOG_KERNELS:
+        dists = []
+        for seed in range(8):
+            draw = np.random.default_rng(100 + seed)
+            x = cuda(draw.standard_normal((300, 784)) / np.sqrt(784))
+            y = cuda(draw.standard_normal((411, 784)) / np.sqrt(784))
+            b = cuda(draw.standard_normal((411, 1)))
+            kw = dict(kernel_name=name, normalize_rows=True)
+            got = kernel_matvec(x, y, b, precision="bfloat16", **kw)
+            want = kernel_matvec_torch(x, y, b, precision="bfloat16", **kw)
+            exact = kernel_matvec_torch(x.double(), y.double(), b.double(),
+                                        **kw)
+            _, rel = compare(got, want)
+            check(rel <= KERNEL_TOL["bfloat16"],
+                  f"bf16 D = 784 flash {name} draw {seed}: {rel:.3e}")
+            dists.append((rel, compare(got, exact)[1],
+                          compare(want, exact)[1]))
+        print(f"phase 2: bf16 D = 784 flash {name}, 8 draws (kernel vs "
+              f"plain, kernel vs float64, plain vs float64): "
+              + ", ".join(f"({a:.2e}, {k:.2e}, {p:.2e})"
+                          for a, k, p in dists) + f" [{card}]")
+
     # The E = 512 shape, timed: the most E blocks of a launch.
     records = []
     n, m, d, e = 300, 411, 37, 512
@@ -932,25 +994,8 @@ def main_path_kernels(card, sfu_rate, entries, datasets, per_run):
             got = kernel_matvec(x, y, b, **kwt)
             ref = kernel_matvec_torch(x, y, b, **kwt)
             err, rel = compare(got, ref)
-            if name in WIDE_MAIN_PATH:
-                # The large-D form of both modes cancels at the diagonal of
-                # same points, with the abs-exp map's square root, more
-                # than the plain version's (ROADMAP Queue 3; phase 3 holds
-                # it to float64): the wide mode is held against the narrow
-                # mode on the same inputs, the same form, so that what
-                # differs is the signal product.
-                narrow = torch.cat(
-                    [kernel_matvec(x, y, b[:, c:c + 8].contiguous(), **kwt)
-                     for c in range(0, e, 8)], dim=1)
-                _, rel_narrow = compare(got, narrow)
-                print(f"{name} [{tier}]: kernel vs plain {rel:.3e}, wide "
-                      f"vs narrow mode {rel_narrow:.3e} [{card}]")
-                check(rel_narrow <= KERNEL_TOL[tier],
-                      f"{name} {tier}: wide vs narrow mode {rel_narrow:.3e}")
-                del narrow
-            else:
-                check(rel <= KERNEL_TOL[tier],
-                      f"{name} {tier}: kernel vs plain {rel:.3e}")
+            check(rel <= KERNEL_TOL[tier],
+                  f"{name} {tier}: kernel vs plain {rel:.3e}")
             del got, ref
             reps = 3 if n * m > 10**9 else 10
             ms = time_ms(lambda: kernel_matvec(x, y, b, **kwt), reps)
@@ -970,7 +1015,7 @@ def main_path_kernels(card, sfu_rate, entries, datasets, per_run):
                   f"max_abs_err vs plain {err:.3e} [{card}]")
             entries.append(dict(
                 name=which, route="cuda",
-                source=WIDE_SOURCE if e > 8 else SOURCE,
+                source=kernel_source(d, e),
                 replaces=REPLACES[which], launches=per_run[name, tier],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms, at=name,
@@ -1028,9 +1073,10 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
             frobenius[id(arrays)] * torch.linalg.norm(b64)
             + torch.linalg.norm(a64)))
 
-    # Launches of the direct kernel inside each fit and query, and every
-    # call of the plain version during the solves with its dtype.
-    phase_launches = {"fit": 0, "query": 0}
+    # Launches of the direct kernel inside each fit and query (and the E
+    # blocks of its wide launches in each fit), and every call of the plain
+    # version during the solves with its dtype.
+    phase_launches = {"fit": 0, "query": 0, "fit E blocks": 0}
     plain_dtypes = []
     real_plain = kernel_matvec_torch
 
@@ -1040,11 +1086,14 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
 
     def counted(method, key):
         def wrapper(self, *args, **kwargs):
-            before = _build.DIRECT.launches
+            before = _build.DIRECT.launches, _build.DIRECT.wide_eblocks
             try:
                 return method(self, *args, **kwargs)
             finally:
-                phase_launches[key] += _build.DIRECT.launches - before
+                phase_launches[key] += _build.DIRECT.launches - before[0]
+                if key == "fit":
+                    phase_launches["fit E blocks"] += (
+                        _build.DIRECT.wide_eblocks - before[1])
         return wrapper
 
     classes = (torch_engine.TorchSolverCG, torch_engine.TorchSolverDirect)
@@ -1062,7 +1111,7 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
                        "dimension": arrays["source_points"].shape[1],
                        **args},
             query_argument_groups=[query])
-        phase_launches.update(fit=0, query=0)
+        phase_launches.update({"fit": 0, "query": 0, "fit E blocks": 0})
         plain_dtypes.clear()
         for cls, method, fn in saved:
             setattr(cls, method, counted(fn, method))
@@ -1090,8 +1139,10 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
                   f"{label}: {query_per_run} direct-kernel launches for "
                   f"{iterations} iterations in one query")
         if args.get("precond_rank"):   # the sketch: one wide launch
-            check(fit_per_run == 1, f"{label}: {fit_per_run} direct-kernel "
-                  "launches per fit, not one (the Nystrom sketch)")
+            eblocks = phase_launches["fit E blocks"] // 2
+            check((fit_per_run, eblocks) == (1, 1), f"{label}: "
+                  f"{fit_per_run} direct-kernel launches of {eblocks} E "
+                  "blocks per fit, not one of one (the Nystrom sketch)")
         if label == "Nystrom PCG" and name == CUBE_131072:
             most = NYSTROM_PCG_ITERATIONS + max(3, 0.1 * NYSTROM_PCG_ITERATIONS)
             check(iterations <= most, f"{label}: {iterations} iterations, "
@@ -1129,13 +1180,18 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
     print(f"phase 5: solver path launches {launches}")
 
     # The solver path's kernel shapes against the plain version, timed:
-    # the Nystrom sketch (E = 256, one launch of the wide mode, in each
-    # tier) and the E = 1 matvec of each dataset.
+    # the Nystrom sketch (E = 256, one launch of the wide mode with one E
+    # block, in each tier; and the narrower blocks' widths E = 16 and 64 at
+    # the same size) and the E = 1 matvec of each dataset.
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     for name, e, tier in ((CUBE_131072, 256, "float32"),
                           (CUBE_131072, 256, "float32x3"),
                           (CUBE_131072, 256, "bfloat16"),
+                          (CUBE_131072, 64, "float32"),
+                          (CUBE_131072, 64, "bfloat16"),
+                          (CUBE_131072, 16, "float32"),
+                          (CUBE_131072, 16, "bfloat16"),
                           (CUBE_131072, 1, "float32"),
                           (SPHERE_131072, 1, "float32"),
                           (CUBE_10000, 1, "float32")):
@@ -1144,36 +1200,42 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
         gen.manual_seed(e)
         b = torch.randn((len(y), e), generator=gen, device=dev)
         kw = dict(kernel_name=arrays["kernel"], precision=tier)
-        before = _build.DIRECT.launches
+        before = _build.DIRECT.launches, _build.DIRECT.wide_eblocks
         got = kernel_matvec(y, y, b, **kw)
-        per_call = _build.DIRECT.launches - before
-        check(per_call == 1, f"solver path {name} E={e} {tier}: "
-              f"{per_call} launches, not one")
+        per_call = _build.DIRECT.launches - before[0]
+        eblocks = _build.DIRECT.wide_eblocks - before[1]
+        check((per_call, eblocks) == (1, int(e > 8)),
+              f"solver path {name} E={e} {tier}: {per_call} launches of "
+              f"{eblocks} E blocks, not one of {int(e > 8)}")
         ref = kernel_matvec_torch(y, y, b, **kw)
         err, rel = compare(got, ref)
         check(rel <= KERNEL_TOL[tier],
               f"solver path {name} E={e} {tier}: kernel vs plain {rel:.3e}")
         del got, ref
         ms = time_ms(lambda: kernel_matvec(y, y, b, **kw), 3)
+        device_ms = kernel_device_ms(lambda: kernel_matvec(y, y, b, **kw), 2)
         plain_ms = time_ms(lambda: kernel_matvec_torch(y, y, b, **kw), 1)
         n, d = y.shape
         bound, bound_by, engine = bound_ms(n, n, d, e, "direct", False,
                                            tier, sfu_rate)
-        what = "Nystrom sketch" if e > 1 else "Krylov matvec"
+        what = ("Nystrom sketch" if e == 256 else "wide signal" if e > 8
+                else "Krylov matvec")
         print(f"phase 5: direct kernel, {what} on {name} E={e} [{tier}]: "
-              f"{ms:.4f} ms in {per_call} launches, plain {plain_ms:.4f} ms,"
-              f" bound {bound:.4f} ms ({engine}), max_abs_err vs plain "
+              f"{ms:.4f} ms (kernel alone {device_ms} ms) in {per_call} "
+              f"launches of {eblocks} E blocks, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({engine}), max_abs_err vs plain "
               f"{err:.3e} [{card}]")
         entries.append(dict(
             name="direct", route="cuda",
-            source=WIDE_SOURCE if e > 8 else SOURCE,
+            source=kernel_source(d, e),
             replaces=REPLACES["direct"], launches=launches[
                 _build.DIRECT.symbol],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=None,
             at=f"{name}, solver path, E={e}", precision=tier,
-            bound_engine=engine, kernel_device_ms=None,
-            launches_per_call=per_call, wide_mode=e > 8))
+            bound_engine=engine, kernel_device_ms=device_ms,
+            launches_per_call=per_call, e_blocks_per_call=eblocks,
+            wide_mode=e > 8))
         del y, b
         torch.cuda.empty_cache()
     return records, datasets
@@ -2211,6 +2273,13 @@ def harness_path(card, sfu_rate, kernels, entries, datasets):
 
     started = time.perf_counter()
     built = {(kind, args) for kind, args, _, _ in kernels}
+    # The hook after 10^5 launches in this process.
+    x = torch.randn((64, 3), device="cuda")
+    for _ in range(HOOK_PRIOR_LAUNCHES):
+        kernel_matvec(x, x, x[:, :1].contiguous(), kernel_name="gaussian")
+    torch.cuda.synchronize()
+    print(f"phase 9: {_build.DIRECT.launches} launches before the hook "
+          f"[{card}]")
     _build.reset_launch_counts()
     profiled = profiled_runs(card, built, datasets)
     before = _build.DIRECT.launches
@@ -2276,12 +2345,49 @@ def harness_path(card, sfu_rate, kernels, entries, datasets):
             "sweep_rel_error": rel}
 
 
+def hook_in_this_process(card):
+    """The profiler hook once in this process, after phases 2-8: a trace
+    with kernel events, or the hook's refusal (CUPTI dropped the
+    records); returns which."""
+    from kmb_tpu_torch.datasets import make_arrays
+    from kmb_tpu_torch.runner import FAILED_TRACE_FILE, TRACE_FILE
+    from kmb_tpu_torch.runner import run_on_arrays
+
+    arrays = make_arrays(HOOK_DATASET)
+    arrays["target_signal"] = arrays["source_signal"]   # any truth
+    run = definition("torch_engine", "TorchProduct", arrays,
+                     {"precision": "float32"})
+    root = tempfile.mkdtemp(prefix="kmb_hook_")
+    os.environ["KMB_PROFILE_DIR"] = root
+    try:
+        (row,) = run_on_arrays(run, arrays, runs=1)
+        with open(os.path.join(row.attrs["profile_trace"], TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        check(kernels > 0, "the hook wrote a trace without kernel events")
+        outcome = f"a trace with {kernels} kernel events"
+    except RuntimeError as exc:
+        failed = [os.path.join(d, FAILED_TRACE_FILE)
+                  for d, _, names in os.walk(root)
+                  if FAILED_TRACE_FILE in names]
+        check(failed and "no CUDA kernel" in str(exc),
+              f"the hook failed otherwise: {exc}")
+        outcome = f"refused: {exc}"
+    finally:
+        del os.environ["KMB_PROFILE_DIR"]
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 9: the profiler hook in the main process after phases "
+          f"2-8: {outcome} [{card}]")
+    return outcome
+
+
 def harness_phase(card, entries):
     """Phase 9 in a process of its own (this script with --phase9-report),
     its output relayed: torch.profiler's CUDA records go missing in a
     process that has launched many kernels since its last profiling
     session (after phase 5), and the phase holds a trace's kernel events.
     Appends the child's kernel entries to `entries`; returns its records."""
+    here = hook_in_this_process(card)
     torch.cuda.empty_cache()   # the card's memory, for the other process
     tmp = tempfile.mkdtemp(prefix="kmb_phase9_")
     report = os.path.join(tmp, "report.json")
@@ -2307,7 +2413,7 @@ def harness_phase(card, entries):
         proc.stdout.close()
         shutil.rmtree(tmp, ignore_errors=True)
     entries.extend(out["entries"])
-    return out["records"]
+    return dict(out["records"], hook_in_main_process=here)
 
 
 def harness_process(report):

@@ -43,6 +43,9 @@ HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "wide.cuh",
            CSRC / "large_d.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# Extra -D switches of the sources, set by `use_defines` (measurement
+# tools: tools/wide_breakdown.py); none in the package's own build.
+DEFINES = ()
 
 _lock = threading.Lock()
 _library = None
@@ -67,7 +70,8 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
     """Compile one source: sm_90a, C++17, -O3, position-independent code,
     with ptxas's register and spill report."""
     return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-c", "-o", str(output), str(source)]
+            *(f"-D{name}" for name in DEFINES), "-Xptxas", "-v", "-c",
+            "-o", str(output), str(source)]
 
 
 def link_command(nvcc: str, objects, output: Path) -> list[str]:
@@ -147,6 +151,16 @@ def build() -> Path:
     return target
 
 
+def use_defines(*names: str) -> None:
+    """Build (into a library of its own) and load the kernels with these
+    -D switches from the next launch on; none restores the package's build.
+    For measurement tools: the switches change what the kernels compute."""
+    global DEFINES, _library
+    with _lock:
+        DEFINES = tuple(names)
+        _library = None
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per process) and load the kernel library."""
     global _library
@@ -186,14 +200,20 @@ def plan(d, nc, kernel, flash, den, bf16) -> tuple[int, int]:
 class CudaKernel:
     """One C entry point of the kernel library, with launch counters:
     `launches` counts every launch, `wide_launches` those of the wide
-    mode (a signal of more than 8 columns on the tensor cores)."""
+    mode (a signal of more than 8 columns on the tensor cores), and
+    `wide_eblocks` the E blocks of those launches (blocks of signal
+    columns on the grid's z dimension, each computing the kernel values
+    once)."""
 
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
         self.wide_launches = 0
+        self.wide_eblocks = 0
 
-    def __call__(self, *args, wide: bool = False) -> None:
+    def __call__(self, *args, eblocks: int = 0) -> None:
+        """Launch; `eblocks` > 0 marks a launch of the wide mode with that
+        many E blocks."""
         lib = load_library()
         code = getattr(lib, self.symbol)(*args)
         if code != 0:
@@ -201,7 +221,8 @@ class CudaKernel:
                 f"{self.symbol} launch failed: CUDA error {code} "
                 f"({lib.kmb_error_string(code).decode()})")
         self.launches += 1
-        self.wide_launches += int(wide)
+        self.wide_launches += int(eblocks > 0)
+        self.wide_eblocks += eblocks
 
 
 DIRECT = CudaKernel("kmb_direct_matvec")
@@ -213,3 +234,4 @@ def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
         kernel.wide_launches = 0
+        kernel.wide_eblocks = 0

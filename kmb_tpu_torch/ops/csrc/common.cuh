@@ -74,7 +74,8 @@ struct Args {
   const void* y;     // (m, d) source points, as x
   const float* b;    // (m, nc) signal (narrow mode, nc <= 8)
   const void* bt;    // wide mode: (E blocks x nc, ldb) transposed signal, f32 TF32 hi
-                     // parts or bf16 values (see wide.cuh)
+                     // parts or bf16 values (see wide.cuh); at small D in whole
+                     // tiles, each contiguous (small_d_wide.cuh)
   const void* bt_lo; // wide mode, f32 tiers: the TF32 lo parts
   const float* xsq;  // (n,) |x|^2, large-D squared-distance kernels only
   const float* ysq;  // (m,) |y|^2
@@ -84,7 +85,8 @@ struct Args {
   int n, n_ok, m_eff;
   int words;         // 32-bit words per point row (padded coordinates)
   int diag, shift;
-  int ldb;           // wide mode: source columns per row of bt (m padded to 8)
+  int ldb;           // wide mode: source columns per row of bt (m padded to 8; at
+                     // small D to whole tiles of 32)
 };
 
 // The source columns [begin, end) of split blockIdx.x: equal shares rounded
@@ -235,7 +237,8 @@ struct Launch {
 struct Shape {
   int d;       // small D: padded coordinates (3 or 8); large D: words per row
   int nc;      // signal columns: 1, 2, 4 or 8; above 8 the wide mode's
-               // columns per block of the grid's z dimension (16, 32, 64)
+               // columns per block of the grid's z dimension (16, 64 or 256
+               // at small D, 16 at large D)
   int kernel;  // KernelId
   bool flash, den, bf16;
   bool large;  // D > 8: the tensor-core form

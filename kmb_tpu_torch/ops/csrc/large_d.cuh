@@ -39,7 +39,13 @@
 // four lanes of a row) with shuffles once, after the last tile.  The flash
 // scheme keeps the FlashAttention-2 order: the tile's row max from the
 // fragment and two quad shuffles, one rescale per row per tile, then exp2
-// of every logit against the new max; no branch per pair.
+// of every logit against the new max; no branch per pair.  In the bfloat16
+// tier the flash kernel walks its split twice: the first pass takes each
+// row's max, the second rounds every weight against it, as the plain
+// version (and kmb_tpu's kernel_matvec_xla) round against the row's max;
+// weights rounded against a running max land on another bf16 grid, 2-4% of
+// the largest output apart where a row's outputs cancel (N = 300, M = 411,
+// D = 784).
 //
 // What bounds it on an H100: at D = 784 the tensor cores (3 passes of
 // 2 N M D flops at 495 TFLOP/s for TF32) and the staged bytes, (128 + 128)
@@ -97,18 +103,6 @@ __device__ __forceinline__ int y_word(int r, int k) {
 
 // ---- PTX wrappers (the shared ones are in mma.cuh) -----------------------------
 
-// Four 8 x 8 b16 matrices (8 x 4 words) from shared memory: lane l gives
-// the address of row l % 8 of matrix l / 8 and receives, from each matrix
-// in turn, the word at (row l / 4, word l % 4): wgmma's register A fragment
-// for the warp's 16 rows, (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-// with g = lane / 4, t = lane % 4 (tf32: one value a word, k = 8; bf16:
-// two, k = 16).
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&v)[4], const unsigned* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-               : "r"(smem_addr(row)));
-}
-
 // The shared-memory descriptor of a y chunk at K step ks (two core
 // matrices along K): start address, leading byte offset 128 (along K),
 // stride byte offset 1024 (along N), no swizzle; each field in 16 bytes.
@@ -117,11 +111,11 @@ __device__ __forceinline__ unsigned long long y_desc(const unsigned* y_chunk, in
   return (unsigned long long)((addr & 0x3FFFF) >> 4) | (8ull << 16) | (64ull << 32);
 }
 
-// D (64 x 128, f32) += A (64 x k, registers) B (k x 128, shared, K-major).
-// Accumulator fragment: d[j] holds rows g and g + 8 of the warp's 16,
-// columns 8j + 2t and 8j + 2t + 1.
+// D (64 x 128, f32) = A (64 x k, registers) B (k x 128, shared, K-major)
+// + (scale_d ? D : 0).  Accumulator fragment: d[j] holds rows g and g + 8
+// of the warp's 16, columns 8j + 2t and 8j + 2t + 1.
 __device__ __forceinline__ void wgmma(float (&d)[16][4], const unsigned (&a)[4],
-                                      unsigned long long b) {
+                                      unsigned long long b, int scale_d) {
   if constexpr (kBf16) {
     asm volatile(
         "{\n"
@@ -155,7 +149,7 @@ __device__ __forceinline__ void wgmma(float (&d)[16][4], const unsigned (&a)[4],
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   } else {
     asm volatile(
         "{\n"
@@ -189,7 +183,7 @@ __device__ __forceinline__ void wgmma(float (&d)[16][4], const unsigned (&a)[4],
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 }
 
@@ -269,33 +263,55 @@ struct LargeD {
     }
   }
 
-  // Start acc += this chunk's 64 x 128 block of <x, y> for the warpgroup
-  // (x from registers, y from shared memory; in 3xTF32 the small terms
-  // first), as one wgmma group; it runs on while the caller goes on.
+  // Start this chunk's 64 x 128 block of <x, y> for the warpgroup (x from
+  // registers, y from shared memory; in 3xTF32 the small terms first), as
+  // one wgmma group; it runs on while the caller goes on.  bf16: acc +=
+  // the block.  3xTF32: part = the block, from zero, which settle() adds
+  // into acc on the FP32 units: the tensor cores truncate as they
+  // accumulate, and one chain of three wgmmas per k step over all of D
+  // left the form of equal points about 1e-5 from 0, which abs-exp's
+  // square root amplified (1.0e-4 of the largest output off the plain
+  // version at D = 256).
   static __device__ __forceinline__ void multiply(const unsigned* stage, unsigned (&ah)[kSteps][4],
-                                                  unsigned (&al)[kSteps][4], float (&acc)[16][4]) {
+                                                  unsigned (&al)[kSteps][4], float (&acc)[16][4],
+                                                  float (&part)[16][4]) {
     const unsigned* y_hi = stage + kXWords;
     const unsigned* y_lo = y_hi + kYWords;
-    fence_acc(acc);
-    wgmma_fence();
+    if constexpr (kBf16) {
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      if constexpr (!kBf16) {
-        wgmma(acc, al[ks], y_desc(y_hi, ks));
-        wgmma(acc, ah[ks], y_desc(y_lo, ks));
+      for (int ks = 0; ks < kSteps; ++ks) wgmma(acc, ah[ks], y_desc(y_hi, ks), 1);
+    } else {
+      fence_acc(part);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        wgmma(part, al[ks], y_desc(y_hi, ks), ks > 0);
+        wgmma(part, ah[ks], y_desc(y_lo, ks), 1);
+        wgmma(part, ah[ks], y_desc(y_hi, ks), 1);
       }
-      wgmma(acc, ah[ks], y_desc(y_hi, ks));
     }
     wgmma_commit();
   }
 
-  // Wait for the running wgmma group; then acc and the A registers are free.
+  // Wait for the running wgmma group; then acc and the A registers are
+  // free.  3xTF32: add the chunk's product into acc (part starts at zero,
+  // so a settle with no group before it adds nothing).
   static __device__ __forceinline__ void settle(unsigned (&ah)[kSteps][4],
-                                                unsigned (&al)[kSteps][4], float (&acc)[16][4]) {
+                                                unsigned (&al)[kSteps][4], float (&acc)[16][4],
+                                                float (&part)[16][4]) {
     wgmma_wait<0>();
     fence_acc(acc);
     fence_regs(ah);
-    if constexpr (!kBf16) fence_regs(al);
+    if constexpr (!kBf16) {
+      fence_regs(al);
+      fence_acc(part);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][k] += part[j][k];
+    }
   }
 
   // The signed, scaled form from <x, y> and the norms; clamped where the
@@ -308,6 +324,34 @@ struct LargeD {
     } else {
       const float g = fmaf(-2.f, dot, xq + yq);
       return Map::kClamp ? fmaxf(g, 0.f) : g;
+    }
+  }
+
+  // bf16 flash, first pass: each row's max over this tile's logits (from
+  // the fragment and two quad shuffles) into the row state's m.
+  template <bool MASKED>
+  static __device__ __forceinline__ void row_max(float (&acc)[16][4], State (&st)[2],
+                                                 const float (&xq)[2], const float* tile_buf,
+                                                 int j0, int end, const int (&diag_col)[2], int t) {
+    const float* ysq = tile_buf;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c0 = j * 8 + 2 * t;
+        float yq[2] = {0.f, 0.f};
+        if constexpr (!Map::kDot) load_vec<2>(ysq + c0, yq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = j0 + c0 + e;
+          const bool off = MASKED && (col >= end || col == diag_col[h]);
+          if (!off) mx = fmaxf(mx, Map::logit(form(acc[j][2 * h + e], xq[h], yq[e])));
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+      st[h].m = fmaxf(st[h].m, mx);
     }
   }
 
@@ -412,24 +456,26 @@ __global__ void __launch_bounds__(kThreads, 1) large_d_kernel(const Args a) {
   const long long dlo = (long long)row0 + a.shift, dhi = dlo + kRows;
 
   typename L::State st[2];
-  float acc[16][4];
+  float acc[16][4], part[16][4];  // part: 3xTF32, a chunk's product
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+    for (int k = 0; k < 4; ++k) acc[j][k] = part[j][k] = 0.f;
   unsigned ah[L::kSteps][4], al[L::kSteps][4];
 
   const int chunks = (a.words + kChunk - 1) / kChunk;
   const int tiles = (split.end - split.begin + kCols - 1) / kCols;
-  const int steps = tiles * chunks;
-  // Step q is chunk q % chunks of tile q / chunks, staged in stage
-  // q % kStages; tile t's |y|^2 and signal go to tile buffer t % kStages
-  // with its first chunk.
+  // bf16 flash: a first pass over the split for the rows' maxima.
+  constexpr int kPasses = (FLASH && RND) ? 2 : 1;
+  const int steps = kPasses * tiles * chunks;
+  // Step q is chunk q % chunks of tile q / chunks (of the pass's split:
+  // tile q / chunks % tiles), staged in stage q % kStages; tile t's |y|^2
+  // and signal go to tile buffer t % kStages with its first chunk.
   auto issue = [&](int q) {
     if (q < steps) {
       const int qt = q / chunks, qc = q % chunks;
       L::load(stages + (q % kStages) * kStageWords, tile_bufs + (qt % kStages) * kTileBuf, a,
-              row0, split.begin + qt * kCols, split.end, qc * kChunk, qc == 0);
+              row0, split.begin + (qt % tiles) * kCols, split.end, qc * kChunk, qc == 0);
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };
@@ -437,12 +483,21 @@ __global__ void __launch_bounds__(kThreads, 1) large_d_kernel(const Args a) {
   // at the next step, or after the loop.
   int done_tile = -1;
   auto epilogue = [&]() {
-    const int j0 = split.begin + done_tile * kCols;
+    const int j0 = split.begin + (done_tile % tiles) * kCols;
     const float* tb = tile_bufs + (done_tile % kStages) * kTileBuf;
     const bool masked = j0 + kCols > split.end || (a.diag && j0 < dhi && j0 + kCols > dlo);
-    if (masked) {
+    bool first_pass = false;
+    if constexpr (kPasses == 2) {
+      first_pass = done_tile < tiles;
+      if (first_pass && masked) {
+        L::template row_max<true>(acc, st, xq, tb, j0, split.end, diag_col, t);
+      } else if (first_pass) {
+        L::template row_max<false>(acc, st, xq, tb, j0, split.end, diag_col, t);
+      }
+    }
+    if (!first_pass && masked) {
       L::template epilogue<true>(acc, st, xq, tb, j0, split.end, diag_col, t);
-    } else {
+    } else if (!first_pass) {
       L::template epilogue<false>(acc, st, xq, tb, j0, split.end, diag_col, t);
     }
 #pragma unroll
@@ -465,16 +520,16 @@ __global__ void __launch_bounds__(kThreads, 1) large_d_kernel(const Args a) {
       __syncthreads();
     }
     issue(s + kAhead);
-    L::settle(ah, al, acc);  // step s - 1's wgmma group
+    L::settle(ah, al, acc, part);  // step s - 1's wgmma group
     if (done_tile >= 0) epilogue();
     L::load_a(stage, ah, al, wrow, lane);
-    L::multiply(stage, ah, al, acc);
+    L::multiply(stage, ah, al, acc, part);
     if (++chunk == chunks) {
       done_tile = tile++;
       chunk = 0;
     }
   }
-  L::settle(ah, al, acc);
+  L::settle(ah, al, acc, part);
   if (done_tile >= 0) epilogue();
   cp_async_wait<0>();
 
@@ -592,11 +647,11 @@ __global__ void __launch_bounds__(kThreads, 1) large_d_wide_kernel(const Args a)
   // The block's diagonal runs through source columns [dlo, dhi).
   const long long dlo = (long long)row0 + a.shift, dhi = dlo + kRows;
 
-  float acc[16][4];
+  float acc[16][4], part[16][4];  // part: 3xTF32, a chunk's product
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+    for (int k = 0; k < 4; ++k) acc[j][k] = part[j][k] = 0.f;
   WideRows<NB, FLASH> st;
   unsigned ah[L::kSteps][4], al[L::kSteps][4];
 
@@ -659,16 +714,16 @@ __global__ void __launch_bounds__(kThreads, 1) large_d_wide_kernel(const Args a)
       __syncthreads();
     }
     issue(s + kWideAhead);
-    L::settle(ah, al, acc);  // step s - 1's wgmma group
+    L::settle(ah, al, acc, part);  // step s - 1's wgmma group
     if (done_tile >= 0) epilogue();
     L::load_a(stage, ah, al, wrow, lane);
-    L::multiply(stage, ah, al, acc);
+    L::multiply(stage, ah, al, acc, part);
     if (++chunk == chunks) {
       done_tile = tile++;
       chunk = 0;
     }
   }
-  L::settle(ah, al, acc);
+  L::settle(ah, al, acc, part);
   if (done_tile >= 0) epilogue();
   cp_async_wait<0>();
   st.store(a, row0 + wrow + g, t);

@@ -1,5 +1,6 @@
 // PTX wrappers shared by the tensor-core kernels (sm_90a): cp.async
-// staging, the proxy and wgmma fences, wgmma groups, and the TF32 split.
+// staging, the proxy and wgmma fences, wgmma groups, ldmatrix, and the TF32
+// split.
 // large_d.cuh (the form product) and wide.cuh (the signal product of the
 // wide mode) build on them.
 #pragma once
@@ -65,6 +66,19 @@ template <int N>
 __device__ __forceinline__ void fence_regs(unsigned (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) fence_regs(r[i]);
+}
+
+// Four 8 x 8 b16 matrices (8 x 4 words) from shared memory: lane l gives
+// the address of row l % 8 of matrix l / 8 and receives, from each matrix
+// in turn, the word at (row l / 4, word l % 4): wgmma's register A fragment
+// for the warp's 16 rows, (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+// with g = lane / 4, t = lane % 4 (tf32: one value a word, k = 8; bf16:
+// two, k = 16).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&v)[4], const unsigned* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(smem_addr(row))
+               : "memory");
 }
 
 // x rounded to TF32 (10 mantissa bits, ties away from zero), as an f32

@@ -43,11 +43,13 @@
 //     KMB_WIDE): the kernel values of a tile are the A operand of wgmma
 //     products with a staged signal tile, on the tensor cores (3xTF32 in
 //     the float32 tiers, one bf16 pass in the bfloat16 tier), for blocks of
-//     16, 32 or 64 signal columns (16 at large D) along the grid's z
-//     dimension, so the kernel values are computed once per block, in one
-//     launch for any E.  The wrapper stages the signal transposed, padded
-//     to whole blocks, TF32-split or rounded to bf16.
-//
+//     signal columns along the grid's z dimension: at small D of 16, 64 or
+//     256, the kernel values computed once per launch up to E = 256; at
+//     large D of 16, the kernel values computed once per block.  The
+//     wrapper stages the signal transposed, padded to whole blocks,
+//     TF32-split or rounded to bf16 (at small D in whole tiles, each
+//     contiguous).
+
 // Both: when the row blocks alone would leave SMs idle (N = 10^4 gives 79
 // blocks of 128 rows for 132 SMs), the wrapper splits the source range over
 // the grid's x dimension; each split writes its own partial state and the

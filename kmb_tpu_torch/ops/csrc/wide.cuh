@@ -2,13 +2,16 @@
 // Pallas kernels' MXU accumulation mode (kmb_tpu/ops/product.py,
 // `_accumulate` with acc_mode="mxu", chosen at :560), where a tile of
 // kernel values times the signal tile is one matrix-unit product for any E.
+// Shared by the large-D tile (large_d.cuh with KMB_WIDE: WideSignal's
+// staging and product, WideRows) and the small-D kernel (small_d_wide.cuh:
+// wgmma_rs, WideSignal's shared layout, kGroupColumns).
 //
-// Here each warpgroup holds its 64 target rows' kernel values of a tile of
-// T source columns in registers, in the layout of an f32 wgmma accumulator
-// (thread (g, t) of warp w: rows 16w + g and 16w + g + 8, columns 8j + 2t
-// and 8j + 2t + 1 of block j), and multiplies them by the staged signal
-// tile (T source columns x EB signal columns, in shared memory) with
-// wgmma, A from registers:
+// In the large-D tile each warpgroup holds its 64 target rows' kernel
+// values of a tile of T source columns in registers, in the layout of an
+// f32 wgmma accumulator (thread (g, t) of warp w: rows 16w + g and
+// 16w + g + 8, columns 8j + 2t and 8j + 2t + 1 of block j), and multiplies
+// them by the staged signal tile (T source columns x EB signal columns, in
+// shared memory) with wgmma, A from registers:
 //   float32 / float32x3 tiers: 3xTF32.  Each weight and each signal value
 //     is split into TF32 parts, v = hi + lo, and wgmma m64nEBk8.tf32 sums
 //     lo.hi + hi.lo + hi.hi in f32; the products of TF32 parts are exact,
@@ -37,8 +40,6 @@
 
 namespace kmb {
 
-constexpr int kWideThreads = 256;  // two warpgroups of 64 target rows
-
 // Two bf16 values (exact bf16 already, as f32) in one register, lo in the
 // low half: the k order of a bf16 A fragment's register.
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -52,8 +53,22 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 template <int N, bool BF16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&a)[4],
                                          unsigned long long b, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64, "signal blocks of 16, 32 or 64 columns");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 128,
+                "the signal columns of a warpgroup: 8, 16, 32 or 128");
   if constexpr (BF16) {
+    if constexpr (N == 8) {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "setp.ne.b32 p, %9, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+          "{"
+          "%0, %1, %2, %3 "
+          "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+          "}\n"
+          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
     if constexpr (N == 16) {
       asm volatile(
           "{\n"
@@ -85,18 +100,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&
             "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
           : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
-    if constexpr (N == 64) {
+    if constexpr (N == 128) {
       asm volatile(
           "{\n"
           ".reg .pred p;\n"
-          "setp.ne.b32 p, %37, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          "setp.ne.b32 p, %69, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
           "{"
           "%0, %1, %2, %3, %4, %5, %6, %7, "
           "%8, %9, %10, %11, %12, %13, %14, %15, "
           "%16, %17, %18, %19, %20, %21, %22, %23, "
-          "%24, %25, %26, %27, %28, %29, %30, %31 "
-          "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63 "
+          "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
           "}\n"
           : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
             "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
@@ -105,10 +124,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&
             "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
             "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
             "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-            "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+            "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+            "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+            "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+            "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+            "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+            "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+            "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+            "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+            "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
           : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
   } else {
+    if constexpr (N == 8) {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "setp.ne.b32 p, %9, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+          "{"
+          "%0, %1, %2, %3 "
+          "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n"
+          "}\n"
+          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
     if constexpr (N == 16) {
       asm volatile(
           "{\n"
@@ -140,18 +180,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&
             "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
           : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
-    if constexpr (N == 64) {
+    if constexpr (N == 128) {
       asm volatile(
           "{\n"
           ".reg .pred p;\n"
-          "setp.ne.b32 p, %37, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+          "setp.ne.b32 p, %69, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
           "{"
           "%0, %1, %2, %3, %4, %5, %6, %7, "
           "%8, %9, %10, %11, %12, %13, %14, %15, "
           "%16, %17, %18, %19, %20, %21, %22, %23, "
-          "%24, %25, %26, %27, %28, %29, %30, %31 "
-          "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63 "
+          "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
           "}\n"
           : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
             "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
@@ -160,7 +204,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&
             "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
             "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
             "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-            "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+            "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+            "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+            "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+            "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+            "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+            "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+            "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+            "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+            "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
           : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
     }
   }
@@ -198,6 +250,10 @@ struct WideSignal {
   // with 16-byte cp.async pieces, zero-filled past the padded length a.ldb
   // (a multiple of 8, so a piece is wholly inside or outside).  Columns
   // past the split's end keep their values: their weights are exactly 0.
+  // Eight neighbouring threads take piece q of eight neighbouring signal
+  // columns, which lie in distinct banks (a piece of each column for each
+  // thread in turn would put eight on the same four banks); a warp reads
+  // 64 contiguous bytes of each of its eight columns.
   template <int THREADS>
   static __device__ __forceinline__ void load(unsigned* tile, const Args& a, int j0) {
     constexpr int kPieces = kRowWords / 4;  // per signal column and part
@@ -207,7 +263,7 @@ struct WideSignal {
     for (int h = 0; h < (EB * kPieces + THREADS - 1) / THREADS; ++h) {
       const int idx = h * THREADS + threadIdx.x;
       if (EB * kPieces % THREADS == 0 || idx < EB * kPieces) {
-        const int n = idx / kPieces, q = idx % kPieces;
+        const int n = idx / (8 * kPieces) * 8 + idx % 8, q = idx / 8 % kPieces;
         const int j = j0 + q * kElems;
         const bool valid = j < a.ldb;
         const size_t off = (c0 + n) * a.ldb + (valid ? j : 0);

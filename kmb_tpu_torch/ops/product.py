@@ -11,8 +11,9 @@ The twin of kmb_tpu.ops.product.  Three functions:
   launch per call at any signal width: up to 8 columns the signal
   products run on the FP32 units; above 8 (the wide mode) each tile of
   kernel values is multiplied by a staged signal tile on the tensor cores,
-  in blocks of 16, 32 or 64 columns at D <= 8 and 16 at D > 8 along the
-  launch's grid (`signal_plan`, `stage_wide_signal`).
+  in blocks of 16, 64 or 256 columns at D <= 8 (each kernel value computed
+  once per launch up to E = 256) and 16 at D > 8 along the launch's grid
+  (`signal_plan`, `stage_wide_signal`).
 - `kernel_matvec`: the dispatch.  CUDA tensors go to the kernels, CPU
   tensors to the plain version; nothing falls back from one to the other.
 
@@ -60,11 +61,14 @@ INT32_MAX = 2**31 - 1
 _CUDA_KERNEL_ID = {"gaussian": 0, "absolute-exponential": 1,
                    "inverse-distance": 2, "exponential": 3}
 _NARROW_WIDTHS = (1, 2, 4, 8)  # signal columns of the narrow mode
-_WIDE_BLOCKS = (16, 32, 64)     # signal columns per E block, wide mode, D <= 8
+_WIDE_BLOCKS = (16, 64, 256)    # signal columns per E block, wide mode, D <= 8
 _WIDE_BLOCK_LARGE_D = 16        # ... at D > 8 (csrc/large_d.cuh, kWideEB)
 # The wide mode's float32 tiers: the order of the source columns within
 # each group of 8 in the staged signal (csrc/wide.cuh).
 WIDE_TF32_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# Source columns per tile of the small-D wide kernel (csrc/small_d_wide.cuh,
+# kTile): its signal is staged in whole tiles, each contiguous.
+WIDE_TILE = 32
 _MIN_FILL = 0.9  # column splits fill at least this share of every wave
 _MIN_SPLIT_COLUMNS = 512  # ... but give no split fewer source columns
 
@@ -320,12 +324,12 @@ def signal_plan(e, large):
     """(columns per block, blocks) of an E-column signal in one launch.
 
     E <= 8: one block of 1, 2, 4 or 8 columns, the narrow mode.  Above, the
-    wide mode, blocks along the grid's z dimension: at D <= 8 of 16, 32 or
-    64 columns (the narrowest that holds E, else 64: the float32 tiers keep
-    four register sets of a block's columns, a step's product, the small
-    terms, the group's and the running sums), at D > 8 of 16 (its signal
-    tiles share shared memory with the form's stages).  The kernel values
-    are computed once per block.
+    wide mode, blocks along the grid's z dimension: at D <= 8 of 16, 64 or
+    256 columns (the narrowest that holds E, else 256: its warpgroups take
+    half of a block's columns each, beside the kernel values that a block
+    computes once), at D > 8 of 16 (its signal tiles share shared memory
+    with the form's stages).  The kernel values are computed once per
+    block.
     """
     if e <= 8:
         return next(w for w in _NARROW_WIDTHS if e <= w), 1
@@ -336,35 +340,70 @@ def signal_plan(e, large):
     return eb, -(-e // eb)
 
 
-def stage_wide_signal(b, width, bf16):
+@functools.lru_cache(maxsize=None)
+def _order_index_of(device, size):
+    """The gather index of WIDE_TF32_ORDER over `size` source columns, on
+    `device`: built once per device and power-of-two size."""
+    order = torch.tensor(WIDE_TF32_ORDER, device=device)
+    return (torch.arange(0, size, 8, device=device)[:, None]
+            + order).reshape(-1)
+
+
+def _order_index(ldb, device):
+    """The source columns of each group of 8 in WIDE_TF32_ORDER, for ldb
+    columns: a prefix of a cached index, not copied from the host per
+    call."""
+    return _order_index_of(device, max(8, 1 << (ldb - 1).bit_length()))[:ldb]
+
+
+def stage_wide_signal(b, width, bf16, align=8):
     """The wide mode's signal operand: b (M, E) -> (hi, lo, ldb).
 
     b transposed to (width, ldb): zero-padded to `width` columns (whole E
-    blocks) and to ldb = M rounded up to 8 source columns.  bfloat16: the
-    values as bf16 (b is bf16-rounded already), lo None.  Float32 tiers:
-    the source columns of each group of 8 in the order WIDE_TF32_ORDER
-    (the A fragment of a TF32 k8 step holds a thread's kernel values of
-    columns 2t and 2t + 1 at k = t and t + 4), split into TF32 parts
-    (`tf32_split`) for the 3xTF32 product.
+    blocks) and to ldb = M rounded up to `align` source columns (8, or
+    WIDE_TILE for `tile_wide_signal`).  bfloat16: the values as bf16 (b is
+    bf16-rounded already), lo None.  Float32 tiers: the source columns of
+    each group of 8 in the order WIDE_TF32_ORDER (the A fragment of a TF32
+    k8 step holds a thread's kernel values of columns 2t and 2t + 1 at
+    k = t and t + 4), split into TF32 parts (`tf32_split`) for the 3xTF32
+    product.
     """
     m, e = b.shape
-    ldb = -(-m // 8) * 8
+    ldb = -(-m // align) * align
     bt = F.pad(b.T, (0, ldb - m, 0, width - e))
     if bf16:
         return bt.to(torch.bfloat16).contiguous(), None, ldb
-    order = torch.tensor(WIDE_TF32_ORDER, device=b.device)
-    index = (torch.arange(0, ldb, 8, device=b.device)[:, None]
-             + order).reshape(-1)
-    hi, lo = tf32_split(bt[:, index])
+    hi, lo = tf32_split(bt[:, _order_index(ldb, b.device)])
     return hi, lo, ldb
 
 
+def tile_wide_signal(part, eb):
+    """A staged part (width, ldb) of `stage_wide_signal` (align=WIDE_TILE)
+    in the layout the small-D wide kernel reads: (width / eb, ldb /
+    WIDE_TILE, eb * WIDE_TILE), each tile of WIDE_TILE source columns of
+    each E block of eb columns contiguous, in the kernel's shared-memory
+    order (csrc/wide.cuh, WideSignal::word: 8 signal columns x 16 bytes of
+    source columns a core matrix, side by side along the source columns),
+    so that a tile is copied as it lies.
+    """
+    width, ldb = part.shape
+    tiles, blocks = ldb // WIDE_TILE, width // eb
+    if part.dtype == torch.bfloat16:   # two source columns a 32-bit word
+        v = part.view(blocks, eb // 8, 8, tiles, WIDE_TILE // 8, 4, 2)
+        v = v.permute(0, 3, 1, 4, 2, 5, 6)
+    else:
+        v = part.view(blocks, eb // 8, 8, tiles, WIDE_TILE // 4, 4)
+        v = v.permute(0, 3, 1, 4, 2, 5)
+    return v.contiguous().view(blocks, tiles, eb * WIDE_TILE)
+
+
 def _launch(kernel, points, signal, outs, *, n_ok, m_eff, kernel_id, diag,
-            shift, splits, bf16, ldb, eblocks):
+            shift, splits, bf16, ldb, nc, eblocks):
     """Check the staged operands and launch one kernel on them.
 
     signal: (b, None) in the narrow mode, b (M, nc); the wide mode's
-    (hi, lo) of `stage_wide_signal` (ldb > 0).
+    (hi, lo) of `stage_wide_signal` (ldb > 0), at D <= 8 tiled
+    (`tile_wide_signal`).
     """
     (x, xsq), (y, ysq) = points
     b, b_lo = signal
@@ -383,13 +422,13 @@ def _launch(kernel, points, signal, outs, *, n_ok, m_eff, kernel_id, diag,
                 f"staged operand {name} must be a contiguous {dtype} CUDA "
                 "tensor")
     n, d = x.shape
-    nc = b.shape[0] // eblocks if wide else b.shape[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         kernel(_ptr(x), _ptr(y), _ptr(b), _ptr(b_lo), _ptr(xsq), _ptr(ysq),
                *(_ptr(o) for o in outs),
                n, n_ok, m_eff, d, nc, kernel_id, int(diag), shift,
-               splits, int(bf16), ldb, eblocks, stream, wide=wide)
+               splits, int(bf16), ldb, eblocks, stream,
+               eblocks=eblocks if wide else 0)
 
 
 def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
@@ -457,9 +496,14 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
         return torch.empty(shape, dtype=torch.float32, device=device)
 
     nc, eblocks = signal_plan(e, large)
-    if nc > 8:
+    if nc > 8 and large:
         hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16)
         signal = (hi, lo)
+    elif nc > 8:
+        hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
+                                        align=WIDE_TILE)
+        signal = tuple(None if p is None else tile_wide_signal(p, nc)
+                       for p in (hi, lo))
     else:
         signal, ldb = (F.pad(bs, (0, nc - e)).contiguous(), None), 0
     splits = 1
@@ -469,7 +513,7 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
         splits = choose_splits(-(-n // rows) * eblocks,
                                per_sm * _sm_count(device.index), m_eff)
     launch = dict(n_ok=n_ok, m_eff=m_eff, kernel_id=kernel_id, diag=md,
-                  shift=shift, splits=splits, bf16=bf16, ldb=ldb,
+                  shift=shift, splits=splits, bf16=bf16, ldb=ldb, nc=nc,
                   eblocks=eblocks)
     out = new(splits, n, nc * eblocks)
 

@@ -422,8 +422,9 @@ def nystrom_factors(matvec: Callable, omega, *, method: str = "svd",
     run in float64: each Gram squares a condition number that float32
     does not resolve (`nystrom_routes.py` on an H100: on the 131072-point
     solver cube, Nystrom PCG at rank 256 took 165 iterations on float32
-    Grams without the QR, 121 with both, beside 142 on the "svd" route).  Returns U (m, rank) orthonormal and
-    lam (rank,) >= 0, descending, in float32.
+    Grams without the QR, 121 with both, beside 142 on the "svd" route).
+    Returns U (m, rank) orthonormal and lam (rank,) >= 0, descending, in
+    float32.
 
     Sharded (method "gram" only): each rank passes its rows of omega, a
     `matvec` that returns its rows of K @ omega, the global row count `m`

@@ -6,13 +6,13 @@ renders the repository's templates/:
     python -m kmb_tpu_torch.website --outputdir website
 
 jinja2 (and matplotlib, for the summary PNGs) are imported only when a
-site is rendered.  Rebuild of reference create_website.py:78-376: one interactive detail page
-per dataset AND per algorithm (Chart.js log-log plots of every plot
-variant, with Pareto fronts per series), optional LaTeX/tikz export and
-scatter mode, a summary PNG per dataset via plot.create_plot, and an index
-page linking everything.  Unlike the reference, argparse runs under
-`__main__`/`main()` instead of at import time (reference bug,
-create_website.py:93-119).
+site is rendered.  Rebuild of reference create_website.py:78-376: one
+interactive detail page per dataset AND per algorithm (Chart.js log-log
+plots of every plot variant, with Pareto fronts per series), optional
+LaTeX/tikz export and scatter mode, a summary PNG per dataset via
+plot.create_plot, and an index page linking everything.  Unlike the
+reference, argparse runs under `__main__`/`main()` instead of at import
+time (reference bug, create_website.py:93-119).
 """
 
 from __future__ import annotations

@@ -171,9 +171,11 @@ def test_each_launch_is_counted(normalize, which, cuda_points):
     x, y, b = cuda_points(300, 700, 3, 11)  # 11 columns: the wide mode
     kernel = getattr(_build, which)
     before, wide = kernel.launches, kernel.wide_launches
+    eblocks = kernel.wide_eblocks
     kernel_matvec(x, y, b, kernel_name="gaussian", normalize_rows=normalize)
     assert kernel.launches == before + 1
     assert kernel.wide_launches == wide + 1
+    assert kernel.wide_eblocks == eblocks + 1
 
 
 @pytest.mark.cuda
@@ -188,6 +190,90 @@ def test_deferred_flash_state_with_limits(cuda_points):
         masked = w.abs() >= 1e29   # rows past row_limit keep m = -1e30
         assert torch.equal(g.abs() >= 1e29, masked)
         _close(g[~masked], w[~masked])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["wide", "narrow"])
+def test_large_d_form_at_the_diagonal_of_equal_points(mode, cuda_points):
+    # x = y at D = 256: the form |x|^2 + |y|^2 - 2<x, y> of the diagonal
+    # pairs cancels to about 0, and abs-exp's square root amplifies its
+    # error.  The 3xTF32 form product added per chunk on the FP32 units (the
+    # tensor cores truncate as they accumulate) keeps the kernel within
+    # 1e-4 of the plain version, in the wide mode (E = 16, one launch) and
+    # the narrow mode (two launches of 8 columns).
+    from kmb_tpu_torch.datasets import make_arrays
+
+    arrays = make_arrays(
+        "product-normal-D256-E16-M20000-N20000-absolute-exponential")
+    y = torch.tensor(arrays["source_points"], dtype=torch.float32,
+                     device="cuda")
+    b = torch.tensor(arrays["source_signal"], dtype=torch.float32,
+                     device="cuda")
+    kw = dict(kernel_name="absolute-exponential")
+    if mode == "wide":
+        got = kernel_matvec(y, y, b, **kw)
+    else:
+        got = torch.cat([kernel_matvec(y, y, b[:, c:c + 8].contiguous(), **kw)
+                         for c in (0, 8)], dim=1)
+    _close(got, kernel_matvec_torch(y, y, b, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gaussian", "absolute-exponential",
+                                    "exponential"])
+def test_bf16_large_d_flash_over_draws(kernel, cuda_points):
+    # N = 300, M = 411, D = 784, E = 1, normalised, bfloat16: on draws whose
+    # outputs cancel (the largest output near 0.01) a weight rounded to
+    # bf16 against a running max and against the row's max differ by 2-4%
+    # of the largest output, though both are as far from float64.  The
+    # kernel's first pass takes the row's max, so each draw is held to the
+    # plain version at the bfloat16 limit.
+    for seed in range(8):
+        x, y, b = cuda_points(300, 411, 784, 1, seed=100 + seed)
+        kw = dict(kernel_name=kernel, normalize_rows=True)
+        got = kernel_matvec(x, y, b, precision="bfloat16", **kw)
+        want = kernel_matvec_torch(x, y, b, precision="bfloat16", **kw)
+        exact = kernel_matvec_torch(x.double(), y.double(), b.double(), **kw)
+        scale = float(exact.abs().max())
+        print(f"{kernel} draw {seed}: kernel vs float64 "
+              f"{float((got.double() - exact).abs().max()) / scale:.3e}, "
+              f"plain vs float64 "
+              f"{float((want.double() - exact).abs().max()) / scale:.3e}")
+        _close(got, want, TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_profiler_hook_after_many_launches(tmp_path, monkeypatch):
+    # The runner's torch.profiler hook traces one query of a process that
+    # has launched 10^5 kernels before: the trace holds the query's kernel.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+    import os
+
+    from kmb_tpu_torch.datasets import make_arrays
+    from kmb_tpu_torch.definitions import Definition
+    from kmb_tpu_torch.runner import TRACE_FILE, run_on_arrays
+
+    x = torch.randn((64, 3), device="cuda")
+    b = torch.randn((64, 1), device="cuda")
+    for _ in range(100_000):
+        kernel_matvec(x, x, b, kernel_name="gaussian")
+    torch.cuda.synchronize()
+    arrays = make_arrays("product-cube-D3-E1-M1000-N1000-gaussian")
+    arrays["target_signal"] = arrays["source_signal"]   # any truth
+    monkeypatch.setenv("KMB_PROFILE_DIR", str(tmp_path))
+    definition = Definition(
+        algorithm="torch-product",
+        module="kmb_tpu_torch.algorithms.torch_engine",
+        constructor="TorchProduct",
+        arguments={"kernel": "gaussian", "dimension": 3},
+        query_argument_groups=[{}])
+    (row,) = run_on_arrays(definition, arrays, runs=1)
+    with open(os.path.join(row.attrs["profile_trace"], TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("small_d_kernel" in name for name in kernels), kernels
 
 
 @pytest.mark.cuda
@@ -330,11 +416,13 @@ def test_nystrom_sketch_on_the_kernel_matches_plain_version(solver_problem):
     kernel, y, _ = solver_problem("solver-cube-D3-E1-M2000-N2000-gaussian")
     omega = torch.randn((2000, 256), generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
-    before = _build.DIRECT.launches
+    before = _build.DIRECT.launches, _build.DIRECT.wide_eblocks
     u, lam = solve.nystrom_factors(
         solve._default_matvec(y, kernel_name=kernel, precision="float32"),
         omega)
-    assert _build.DIRECT.launches - before == 1
+    # One launch of one E block: each kernel value computed once.
+    assert (_build.DIRECT.launches - before[0],
+            _build.DIRECT.wide_eblocks - before[1]) == (1, 1)
     pu, plam = solve.nystrom_factors(_plain_matvec(y, kernel), omega)
     # The factors of two f32 sketches: U diag(lam) U^T within 1e-4 of
     # lam_0 (tests/test_torch_solve.py's bound for two packages).

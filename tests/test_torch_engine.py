@@ -253,6 +253,25 @@ def test_nvcc_command_line():
     assert link[-2:] == ["a.o", "b.o"]
 
 
+def test_defines_build_a_library_of_their_own(monkeypatch):
+    # tools/wide_breakdown.py builds the kernels with measurement switches
+    # into a library of its own; none is the package's own build.
+    monkeypatch.setattr(_build, "_library", object())
+    plain = _build.library_path("nvcc")
+    assert not any(f.startswith("-D") for f in _build.nvcc_command(
+        "nvcc", _build.SOURCE, _build.BUILD_DIR / "x.o"))
+    try:
+        _build.use_defines("KMB_NO_SIGNAL_LOADS")
+        assert _build._library is None   # loaded again at the next launch
+        cmd = _build.nvcc_command("nvcc", _build.SOURCE,
+                                  _build.BUILD_DIR / "x.o")
+        assert "-DKMB_NO_SIGNAL_LOADS" in cmd
+        assert _build.library_path("nvcc") != plain
+    finally:
+        _build.use_defines()
+    assert _build.DEFINES == () and _build.library_path("nvcc") == plain
+
+
 def test_library_lands_in_the_ignored_build_directory():
     path = _build.library_path("nvcc")
     assert path.parent == _build.BUILD_DIR
@@ -299,3 +318,21 @@ def test_cuda_kernel_counts_only_accepted_launches(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 1 .invalid argument"):
         kernel()
     assert kernel.launches == 2
+
+
+def test_cuda_kernel_counts_wide_launches_and_e_blocks(monkeypatch):
+    class FakeLibrary:
+        def kmb_fake(self, *args):
+            return 0
+
+    monkeypatch.setattr(_build, "load_library", FakeLibrary)
+    kernel = _build.CudaKernel("kmb_fake")
+    kernel(1)                 # the narrow mode
+    kernel(2, eblocks=1)      # the wide mode, one E block (E <= 256)
+    kernel(3, eblocks=2)      # two E blocks (E = 512)
+    assert (kernel.launches, kernel.wide_launches,
+            kernel.wide_eblocks) == (3, 2, 3)
+    monkeypatch.setattr(_build, "KERNELS", (kernel,))
+    _build.reset_launch_counts()
+    assert (kernel.launches, kernel.wide_launches,
+            kernel.wide_eblocks) == (0, 0, 0)

@@ -171,3 +171,57 @@ def test_activities_follow_the_device(device, activities, tmp_path,
     tracer, _ = runner._maybe_profile(PRODUCT, _product(), 0, 1, 1,
                                       torch.device(device))
     assert {a.name for a in tracer.activities} == activities
+
+
+class _FakeProfile:
+    """What the hook's trace callback reads of a finished profile."""
+
+    def __init__(self, device_types):
+        self.device_types = device_types
+        self.exported = []
+
+    def events(self):
+        return [type("Event", (), {"device_type": t})()
+                for t in self.device_types]
+
+    def export_chrome_trace(self, path):
+        self.exported.append(path)
+
+
+@pytest.mark.parametrize("device_types, written", [
+    (["DeviceType.CPU", "DeviceType.CUDA"], True),
+    (["DeviceType.CPU"], False),
+    ([], False)])
+def test_a_cuda_trace_without_kernels_is_refused(device_types, written,
+                                                 tmp_path, monkeypatch):
+    # CUPTI has dropped a process's kernel records before: a trace of a
+    # query on the card with no device event is not written; the hook
+    # leaves the reason beside it and raises.
+    import torch
+
+    monkeypatch.setenv("KMB_PROFILE_DIR", str(tmp_path))
+    tracer, trace_dir = runner._maybe_profile(PRODUCT, _product(), 0, 1, 1,
+                                              torch.device("cuda"))
+    prof = _FakeProfile(device_types)
+    failed = os.path.join(trace_dir, runner.FAILED_TRACE_FILE)
+    if written:
+        tracer.on_trace_ready(prof)
+        assert prof.exported == [os.path.join(trace_dir, runner.TRACE_FILE)]
+        assert not os.path.exists(failed)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA kernel"):
+            tracer.on_trace_ready(prof)
+        assert prof.exported == []
+        with open(failed) as f:
+            assert "no CUDA kernel" in f.read()
+
+
+def test_a_cpu_trace_needs_no_kernel(tmp_path, monkeypatch):
+    import torch
+
+    monkeypatch.setenv("KMB_PROFILE_DIR", str(tmp_path))
+    tracer, trace_dir = runner._maybe_profile(PRODUCT, _product(), 0, 1, 1,
+                                              torch.device("cpu"))
+    prof = _FakeProfile(["DeviceType.CPU"])
+    tracer.on_trace_ready(prof)
+    assert prof.exported == [os.path.join(trace_dir, runner.TRACE_FILE)]

@@ -7,10 +7,12 @@ kmb_tpu/ops/product.py:560).  The card is not needed to check that
 arithmetic: every product of two TF32 (or bf16) values is exact in f32, so
 f32 matmuls of the parts on the CPU reproduce it up to the order of the
 sums.  `emulate` follows the wrapper (`signal_plan`, `stage_wide_signal`,
-the split merge) and the kernels (tiles of 64 source columns at D <= 8 and
+the split merge) and the kernels (tiles of 32 source columns at D <= 8 and
 128 above, the A fragment's column order, the TF32 or bf16 parts of weight
 and signal, each k step's hi.hi product added apart from the small terms
-into groups of 2048 columns, the flash rescale once per tile), and
+into groups of 2048 columns; in bf16 at D <= 8 each k step's product
+chained in the group's sums, at D > 8 each tile's; the flash rescale once
+per tile), and
 is held against kmb_tpu's `kernel_matvec_pallas(..., interpret=True)`
 (which takes `acc_mode="mxu"` at these widths), `kernel_matvec_xla` and the
 float64 oracle.
@@ -38,10 +40,12 @@ import torch
 from kmb_tpu.algorithms.bruteforce_numpy import kernel_matrix
 from kmb_tpu.ops.product import kernel_matvec_pallas, kernel_matvec_xla
 from kmb_tpu_torch.ops.kernels import get_kernel
+from kmb_tpu_torch.ops import product
 from kmb_tpu_torch.ops.product import (
-    FLASH_NEG_INF, INT32_MAX, WIDE_TF32_ORDER, _finalize_direct, _needs_den,
-    kernel_matvec_torch, merge_direct_states,
-    merge_flash_states, signal_plan, stage_wide_signal, tf32_split)
+    FLASH_NEG_INF, INT32_MAX, WIDE_TF32_ORDER, WIDE_TILE, _finalize_direct,
+    _needs_den, kernel_matvec_torch, merge_direct_states,
+    merge_flash_states, signal_plan, stage_wide_signal, tf32_split,
+    tile_wide_signal)
 
 ALL_KERNELS = ["gaussian", "absolute-exponential", "inverse-distance",
                "exponential"]
@@ -51,7 +55,7 @@ WIDTHS = [9, 16, 64, 256]
 # Source columns per tile of the two forms (csrc/small_d_wide.cuh kTile,
 # csrc/large_d.cuh kCols), and per group of tiles (csrc/wide.cuh
 # kGroupColumns).
-TILE = {False: 64, True: 128}
+TILE = {False: 32, True: 128}
 GROUP_COLUMNS = 2048
 # The kernel's A fragment of a TF32 k8 step: logical k = t holds the
 # kernel value of the step's column 2t and k = t + 4 that of column
@@ -86,13 +90,18 @@ def _forms(x, y, spec, bf16):
     return torch.clamp_min(xq + yq - 2.0 * dots, 0.0)
 
 
-def _add_tile_product(grp, w, sig, lo, bf16):
+def _add_tile_product(grp, w, sig, lo, bf16, large):
     """grp plus w (n, T) kernel values times the staged signal tile (T,
-    width): one bf16 pass, or 3xTF32 in the kernel's A column order, each
-    k step's hi.hi product added on its own and the small terms of the
-    tile beside them."""
+    width): one bf16 pass (at D <= 8 each k step of 16 columns chained in
+    grp, at D > 8 the tile's product added), or 3xTF32 in the kernel's A
+    column order, each k step's hi.hi product added on its own and the
+    small terms of the tile beside them."""
     if bf16:
-        return grp + _bf16(w) @ sig
+        if large:
+            return grp + _bf16(w) @ sig
+        for k in range(0, w.shape[1], 16):
+            grp = grp + _bf16(w[:, k:k + 16]) @ sig[k:k + 16]
+        return grp
     order = torch.tensor([8 * q + k for q in range(w.shape[1] // 8)
                           for k in A_COLUMNS])
     a_hi, a_lo = tf32_split(w[:, order].contiguous())
@@ -174,7 +183,7 @@ def emulate(x, y, b, kernel_name, *, normalize_rows=False,
                 run_m = m_new
             else:
                 w = spec.scaled_fn(gt).masked_fill(masked, 0.0)
-            grp = _add_tile_product(grp, w, st, st_lo, bf16)
+            grp = _add_tile_product(grp, w, st, st_lo, bf16, large)
             grp_sum = grp_sum + w.sum(1, keepdim=True)
             if (q + 1) % (GROUP_COLUMNS // tile) == 0:
                 sacc, grp = sacc + grp, torch.zeros_like(grp)
@@ -253,13 +262,15 @@ def _hold(got, want, tier, normalize):
 
 @pytest.mark.parametrize("e, large, want", [
     (1, False, (1, 1)), (3, False, (4, 1)), (8, True, (8, 1)),
-    (9, False, (16, 1)), (16, False, (16, 1)), (17, False, (32, 1)),
-    (33, False, (64, 1)), (64, False, (64, 1)), (100, False, (64, 2)),
-    (256, False, (64, 4)), (512, False, (64, 8)), (9, True, (16, 1)),
+    (9, False, (16, 1)), (16, False, (16, 1)), (17, False, (64, 1)),
+    (33, False, (64, 1)), (64, False, (64, 1)), (100, False, (256, 1)),
+    (256, False, (256, 1)), (512, False, (256, 2)), (9, True, (16, 1)),
     (16, True, (16, 1)), (100, True, (16, 7)), (512, True, (16, 32))])
 def test_signal_plan(e, large, want):
     # One launch at any width: E blocks along the grid, never more
-    # columns than the blocks hold, and less than one block of padding.
+    # columns than the blocks hold, and less than one block of padding;
+    # at D <= 8 one block up to E = 256, so each kernel value is computed
+    # once per launch.
     nc, blocks = signal_plan(e, large)
     assert (nc, blocks) == want
     assert nc * blocks >= e > nc * (blocks - 1)
@@ -292,6 +303,53 @@ def test_stage_wide_signal(tier, m, e, width):
                          <= 2.0 ** -22 * b.T.double().abs())
     # Zero past the signal's columns and rows: no padded column adds.
     assert torch.all(staged[e:] == 0) and torch.all(staged[:, m:] == 0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("eb, blocks", [(16, 1), (256, 1), (256, 2)])
+def test_tiled_signal_is_the_shared_layout(bf16, eb, blocks):
+    # Each tile of each E block contiguous, in the order of
+    # csrc/wide.cuh's WideSignal::word: word (n // 8) * 8 * row_words +
+    # (k // 4) * 32 + (n % 8) * 4 + k % 4 for signal column n and 32-bit
+    # word k of the tile's source columns (a bf16 word holds two, the lower
+    # column in its low half).
+    b = torch.from_numpy(_points(1, 70, 1, eb * blocks - 3, seed=eb)[2])
+    if bf16:
+        b = _bf16(b)
+    hi, lo, ldb = stage_wide_signal(b, eb * blocks, bf16, align=WIDE_TILE)
+    assert ldb == 96
+    for part in (hi,) if bf16 else (hi, lo):
+        tiled = tile_wide_signal(part, eb)
+        row_words = WIDE_TILE // 2 if bf16 else WIDE_TILE
+        assert tiled.shape == (blocks, ldb // WIDE_TILE, eb * WIDE_TILE)
+        assert tiled.is_contiguous() and tiled.dtype == part.dtype
+        words = tiled.view(blocks, ldb // WIDE_TILE, -1)
+        for z, t, n, col in ((0, 0, 0, 0), (blocks - 1, 2, eb - 1, 31),
+                             (0, 1, 9, 13), (blocks - 1, 0, 3, 6)):
+            k = col // 2 if bf16 else col
+            w = (n // 8) * 8 * row_words + (k // 4) * 32 + (n % 8) * 4 + k % 4
+            at = 2 * w + col % 2 if bf16 else w
+            assert words[z, t, at] == part[z * eb + n, t * WIDE_TILE + col]
+        # Every value lands once.
+        assert torch.equal(tiled.flatten().sort().values,
+                           part.flatten().sort().values)
+
+
+def test_order_index_is_built_once_per_device():
+    # The float32 tiers' gather index (WIDE_TF32_ORDER) is built on the
+    # signal's device once per power-of-two length and reused, not copied
+    # from the host per call.
+    product._order_index_of.cache_clear()
+    b = torch.from_numpy(_points(1, 300, 1, 16, seed=3)[2])
+    first = stage_wide_signal(b, 16, False)
+    stage_wide_signal(b[:260], 16, False)    # ldb 304 and 264: one index
+    info = product._order_index_of.cache_info()
+    assert (info.misses, info.hits, info.currsize) == (1, 1, 1)
+    assert product._order_index(304, b.device).data_ptr() == (
+        product._order_index(264, b.device).data_ptr())
+    again = stage_wide_signal(b, 16, False)
+    assert all(torch.equal(u, v) for u, v in zip(first[:2], again[:2]))
+    assert product._order_index_of.cache_info().misses == 1
 
 
 # -- the arithmetic against the JAX package -----------------------------------------
@@ -387,11 +445,12 @@ def test_column_splits_merge_to_one_split(kernel, normalize):
                     a.abs().max())
 
 
-def test_wide_arithmetic_as_accurate_as_the_plain_version():
+@pytest.mark.parametrize("e", [32, 256])
+def test_wide_arithmetic_as_accurate_as_the_plain_version(e):
     # 3xTF32 keeps f32 accuracy: against float64, within 2x of the plain
     # f32 product's error over 8192 columns (a fresh partial per tile, four
-    # groups of tiles).
-    x, y, b = _points(64, 8192, 3, 32, seed=5)
+    # groups of tiles); E = 256 in one block of the grid.
+    x, y, b = _points(64, 8192, 3, e, seed=5)
     truth = _truth("gaussian", x, y, b, False)
     got = emulate(x, y, b, "gaussian").numpy()
     plain = kernel_matvec_torch(torch.from_numpy(x), torch.from_numpy(y),
@@ -402,3 +461,24 @@ def test_wide_arithmetic_as_accurate_as_the_plain_version():
         return np.linalg.norm(v - truth) / np.linalg.norm(truth)
 
     assert rel(got) <= 2.0 * rel(plain), (rel(got), rel(plain))
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("normalize", [False, True])
+def test_e256_is_one_block_that_matches_four_of_64(tier, normalize):
+    # The Nystrom sketch's width in one E block: the kernel values of each
+    # pair formed once, multiplied by all 256 signal columns; the same
+    # numbers as four blocks of 64 (each its own kernel values) up to the
+    # order of f32 sums, and the JAX package's answer.
+    assert signal_plan(256, False) == (256, 1)
+    x, y, b = _points(96, 700, 3, 256, seed=17)
+    kw = dict(kernel_name="gaussian", normalize_rows=normalize,
+              precision=tier)
+    one = emulate(x, y, b, **kw).numpy()
+    four = np.concatenate([
+        emulate(x, y, np.ascontiguousarray(b[:, c:c + 64]), **kw).numpy()
+        for c in range(0, 256, 64)], axis=1)
+    scale = np.abs(four).max()
+    assert np.abs(one - four).max() <= 1e-5 * scale
+    for ref in _references(x, y, b, **kw):
+        _hold(one, ref, tier, normalize)
