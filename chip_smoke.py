@@ -21,7 +21,8 @@ Phases, each of which must pass:
 2. Both kernels (direct and flash) against the plain PyTorch version on the
    card, in all three precision tiers and for all four kernel maps, at
    ragged shapes (D in {3, 5, 9, 37, 64, 130, 784}, E in {1, 2, 4, 8, 13}
-   and, in the wide mode, {9, 16, 64, 100, 256, 512}, N and M not
+   and, in the wide mode, {9, 16, 32, 64, 100, 256, 512} with D up to 784,
+   N and M not
    multiples of 16, 64 or 128), with the diagonal mask, normalize_rows,
    density estimation, the deferred states, offsets and limits (also
    ending inside a tile), and large logits at D = 4 (small-D loop) and
@@ -29,19 +30,29 @@ Phases, each of which must pass:
    against float64: the wide mode no less accurate than the same signal
    in the narrow mode.  The large-D form at the diagonal of equal points
    (D = 256, 20000 points, abs-exp) is held to the plain version in both
-   modes, and the bf16 large-D flash kernel over eight draws at N = 300,
-   M = 411, D = 784 (each draw's distance to float64 printed).  The
-   E = 512 shape is timed in each tier.
+   modes, and every bf16 flash kernel over eight draws at N = 300,
+   M = 411 (the narrow and wide large-D kernels at D = 784 and 64, the
+   small-D kernels at D = 3 and 8; each draw's distance to float64
+   printed).  The E = 512 shape is timed in each tier, the library's
+   attention beside its normalised (flash) rows.
 3. The main path, through the port's runner (`run_on_arrays`, runs=2), on
    five datasets in three tiers, each held against its float64 truth
    computed on the card; every kernel launch is counted, and the D256 E16
    product must take one launch of the wide mode per query.
 4. Each kernel timed at the main path's shapes, in each tier, beside its
    plain version, its bound and (for the flash kernel) the library's
-   attention call, and held against the plain version there too.  `ms`
-   is the wrapper's
-   call (staging, launches, merge) with CUDA events; `kernel_device_ms` is
-   the kernel alone, from torch.profiler.
+   attention call, and held against the plain version there too; then
+   two shapes of the large-D wide kernel beyond the main path's datasets:
+   the D256 dataset's points with a 64-column signal, and the attention
+   dataset's points with a 64-column signal (beside the library's
+   attention); these two shapes' `launches` count their own checked call
+   (counts set to 0 just before it; `main_path` false in their entries).
+   `ms` is the wrapper's call (staging, launches, merge) with CUDA events;
+   `kernel_device_ms` is the kernel alone, CUDA events that the kernel
+   library records just before and after each launch on its stream (None
+   if that read more than the call took); the large-D wide rows also give
+   the bytes the kernel staged from L2 in the checked call, as the
+   library reports them from the launch's own plan, and their rate.
 5. The solver path, through the port's runner (runs=2): Nystrom PCG,
    block-abs Jacobi MINRES and iterative refinement on the direct kernel,
    and the dense solvers, on the registry's solver datasets at full size.
@@ -157,6 +168,10 @@ LIBRARY_TOL = 1e-2       # the library's attention may run reduced precision
 MAIN_PATH_BOUND = {"float32": 1e-4, "float32x3": 1e-4, "bfloat16": 5e-2}
 
 TIERS = ("float32", "float32x3", "bfloat16")
+# (D, E) of phase 2's bf16 flash draws (tests/test_torch_cuda.py's too):
+# the narrow large-D kernel, the large-D wide kernel, the small-D kernels.
+FLASH_DRAWS = ((784, 1), (784, 16), (784, 64), (64, 16), (64, 64), (3, 1),
+               (8, 1), (3, 16), (8, 64))
 KERNEL_NAMES = ("gaussian", "absolute-exponential", "inverse-distance",
                 "exponential")
 LOG_KERNELS = ("gaussian", "absolute-exponential", "exponential")
@@ -358,13 +373,42 @@ SOURCE = "kmb_tpu_torch/ops/csrc/product.cu"
 # entry points of product.cu: at D <= 8 its own kernel, at D > 8 the
 # large-D tile with its signal product from wide.cuh.
 WIDE_SOURCE = {False: "kmb_tpu_torch/ops/csrc/small_d_wide.cuh",
-               True: "kmb_tpu_torch/ops/csrc/large_d.cuh"}
+               True: "kmb_tpu_torch/ops/csrc/large_d_wide.cuh"}
 
 
 def kernel_source(d, e):
     """The source of the kernel a call of D coordinates and E signal
     columns launches (the narrow mode's entry points for E <= 8)."""
     return WIDE_SOURCE[d > 8] if e > 8 else SOURCE
+
+
+# Phase 4's shapes of the large-D wide kernel beyond the main path's
+# datasets: (label, dataset whose points are used, columns of a signal
+# drawn from a seed).  The D256 dataset's kernel is abs-exp (direct); the
+# attention dataset's is exponential, normalised (flash).
+WIDE_TIMING = (
+    ("D256 E64", "product-normal-D256-E16-M20000-N20000-absolute-exponential",
+     64),
+    ("attention D64 E64", "attention-normal-D64-E8-M10000-N10000-exponential",
+     64),
+)
+def library_attention(x, y, b, kernel_name):
+    """One PyTorch call that computes the normalised product of
+    `kernel_name` (scaled_dot_product_attention), or None: exponential
+    attention softmax(x y^T) b; the Gaussian's softmax(-|x - y|^2) as
+    softmax(2 x y^T - |y|^2) b, the row's |x|^2 cancelling.  A yardstick
+    only: the port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    v = b[None, None]
+    if kernel_name == "exponential":
+        q, k = x[None, None], y[None, None]
+        return lambda: sdpa(q, k, v, scale=1.0)[0, 0]
+    if kernel_name == "gaussian":
+        q, k = (2.0 * x)[None, None], y[None, None]
+        bias = -(y * y).sum(1)[None, None, None, :].expand(
+            1, 1, x.shape[0], y.shape[0])
+        return lambda: sdpa(q, k, v, attn_mask=bias, scale=1.0)[0, 0]
+    return None
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
 # TF32 and bf16 on the tensor cores, device memory bandwidth, and
@@ -386,7 +430,7 @@ TENSOR_CORE_FORM = {"float32": (3, PEAK_TF32_FLOPS),
 # the wide mode's source, and arguments as ptxas's mangled names list
 # them), for phase 1's register report: small_d<map, D, E, flash, den,
 # rnd>, large_d<map, E, flash, den, bf16>, small_d_wide_<D>_<tier><map, E
-# block, flash>, large_d_wide_<tier><map, flash>.
+# block, flash>, large_d_wide_<tier><map, flash, E block>.
 MAIN_PATH_KERNELS = {
     ("small_d_kernel", "0,3,1,0,0,0"): "cube, float32",
     ("small_d_kernel", "0,3,1,0,0,1"): "cube, bfloat16",
@@ -395,8 +439,12 @@ MAIN_PATH_KERNELS = {
     ("large_d_kernel", "0,1,0,0,1"): "D784, bfloat16",
     ("large_d_kernel", "3,8,1,0,0"): "attention, float32 (3xTF32)",
     ("large_d_kernel", "3,8,1,0,1"): "attention, bfloat16",
-    ("large_d_wide_tf32", "1,0"): "D256 E16, float32 (3xTF32)",
-    ("large_d_wide_bf16", "1,0"): "D256 E16, bfloat16",
+    ("large_d_wide_tf32", "1,0,16"): "D256 E16, float32 (3xTF32)",
+    ("large_d_wide_bf16", "1,0,16"): "D256 E16, bfloat16",
+    ("large_d_wide_tf32", "1,0,32"): "D256 E64, float32 (two E blocks)",
+    ("large_d_wide_bf16", "1,0,64"): "D256 E64, bfloat16 (one E block)",
+    ("large_d_wide_tf32", "3,1,32"): "attention D64 E64, float32",
+    ("large_d_wide_bf16", "3,1,64"): "attention D64 E64, bfloat16",
     ("small_d_wide_3_tf32", "0,256,0"): "Nystrom sketch E=256, float32",
     ("small_d_wide_3_bf16", "0,256,0"): "Nystrom sketch E=256, bfloat16",
 }
@@ -445,6 +493,16 @@ def compare(got, ref):
 def as_tuple(out):
     return tuple(t for t in out if t is not None) if isinstance(
         out, tuple) else (out,)
+
+
+def kernel_name(line):
+    """(template, arguments) of the kernel a ptxas line names, as
+    ptxas_kernels gives them, or None."""
+    name = re.search(r"'(_Z[^']*)'", line)
+    kind = name and KERNEL_FAMILY.search(name.group(1))
+    if not kind:
+        return None
+    return kind.group(1), ",".join(re.findall(r"L[ib](\d+)E", name.group(1)))
 
 
 def ptxas_kernels(report):
@@ -526,25 +584,27 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_device_ms(fn, reps=3):
-    """Device time of one launch of the hand-written kernel (the
-    profiler's records named as KERNEL_FAMILY's templates, averaged over
-    the records it kept), so `ms` splits into kernel and wrapper: the
-    kernels take one launch per call.  None if the profiler saw no such
-    record."""
-    from torch.profiler import ProfilerActivity, profile
+def kernel_device_ms(fn, reps=3, call_ms=None):
+    """Device time of one launch of the hand-written kernel, so `ms`
+    splits into kernel and wrapper (the kernels take one launch per call):
+    CUDA events that the kernel library records just before and just
+    after each launch on its stream (`_build.launch_timer`), averaged over
+    `reps` calls after one warm-up call.  torch.profiler served before,
+    and in long processes lost its kernel records or read more than the
+    call took (ROADMAP Queue 3).  None if no launch was timed, or if the
+    reading exceeds `call_ms`, the call's own time: a kernel alone cannot
+    take longer than the call."""
+    from kmb_tpu_torch.ops import _build
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _build.launch_timer() as times:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if re.search(r"_d_(wide_)?kernel", e.key)]
-    count = sum(e.count for e in found)
-    us = sum(getattr(e, "self_device_time_total", 0) for e in found)
-    return us / count / 1e3 if count and us > 0 else None
+    if not times:
+        return None
+    ms = sum(times) / len(times)
+    return None if call_ms is not None and ms > call_ms else ms
 
 
 def load_datasets(names, datasets, card):
@@ -647,11 +707,21 @@ def main(argv=None):
                   if "wgmma" in line and "erializ" in line]
     print(f"phase 1: {len(serialized)} wgmma serialisation warnings"
           + "".join(f"\n  {line}" for line in serialized[:4]))
+    serialized_kernels = {kernel_name(line) for line in serialized}
     for (kind, args), what in MAIN_PATH_KERNELS.items():
         found = [(r, s) for k, a, r, s in kernels if (k, a) == (kind, args)]
         check(len(found) == 1, f"{kind}<{args}> not in the build")
         print(f"phase 1: {kind}<{args}> ({what}): {found[0][0]} registers, "
-              f"{found[0][1]} bytes spilled")
+              f"{found[0][1]} bytes spilled, wgmma serialised: "
+              f"{(kind, args) in serialized_kernels}")
+        if kind.startswith("large_d_wide"):   # rebuilt for this card
+            check(found[0][1] == 0, f"{kind}<{args}> spills")
+    wide_main = [key for key in MAIN_PATH_KERNELS
+                 if key[0].startswith("large_d_wide")]
+    print(f"phase 1: {len(serialized_kernels & set(wide_main))} of "
+          f"{len(wide_main)} main-path large_d_wide instantiations have "
+          "their wgmma groups serialised by ptxas (an open fault: ROADMAP "
+          "Queue 2, item 2b)")
     sfu_rate = special_function_rate(props, max_clock_mhz)
     print(f"phases {sorted(phases)} [{card}]")
 
@@ -728,7 +798,8 @@ def kernels_vs_plain(dev, card, sfu_rate):
     wide_rng = np.random.default_rng(1)
     wide_shapes = ((1037, 1511, 3, 9), (517, 1203, 64, 16), (301, 1203, 5, 64),
                    (211, 999, 130, 100), (257, 1031, 3, 256),
-                   (300, 411, 37, 512))
+                   (300, 411, 37, 512), (257, 1031, 256, 64),
+                   (301, 411, 784, 17), (211, 999, 9, 32))
     for tier in TIERS:
         tol = KERNEL_TOL[tier]
         for (n, m, d, e), draw in ([(sh, rng) for sh in shapes]
@@ -838,16 +909,17 @@ def kernels_vs_plain(dev, card, sfu_rate):
               f"D = 256 equal points, {mode} mode: {rel:.3e}")
     del y, b, plain, got
 
-    # The bf16 large-D flash kernel over eight draws whose outputs cancel
-    # (N = 300, M = 411, D = 784): held to the plain version at the bf16
-    # limit, each draw's distance to float64 printed.
-    for name in LOG_KERNELS:
+    # Every bf16 flash kernel over eight draws (N = 300, M = 411; at
+    # D = 784 the outputs cancel): the narrow and wide large-D kernels, the
+    # small-D kernels narrow and wide; held to the plain version at the
+    # bf16 limit, each draw's distance to float64 printed.
+    for (d, e), name in ((de, k) for de in FLASH_DRAWS for k in LOG_KERNELS):
         dists = []
         for seed in range(8):
             draw = np.random.default_rng(100 + seed)
-            x = cuda(draw.standard_normal((300, 784)) / np.sqrt(784))
-            y = cuda(draw.standard_normal((411, 784)) / np.sqrt(784))
-            b = cuda(draw.standard_normal((411, 1)))
+            x = cuda(draw.standard_normal((300, d)) / np.sqrt(d))
+            y = cuda(draw.standard_normal((411, d)) / np.sqrt(d))
+            b = cuda(draw.standard_normal((411, e)))
             kw = dict(kernel_name=name, normalize_rows=True)
             got = kernel_matvec(x, y, b, precision="bfloat16", **kw)
             want = kernel_matvec_torch(x, y, b, precision="bfloat16", **kw)
@@ -855,10 +927,12 @@ def kernels_vs_plain(dev, card, sfu_rate):
                                         **kw)
             _, rel = compare(got, want)
             check(rel <= KERNEL_TOL["bfloat16"],
-                  f"bf16 D = 784 flash {name} draw {seed}: {rel:.3e}")
+                  f"bf16 D = {d} E = {e} flash {name} draw {seed}: "
+                  f"{rel:.3e}")
             dists.append((rel, compare(got, exact)[1],
                           compare(want, exact)[1]))
-        print(f"phase 2: bf16 D = 784 flash {name}, 8 draws (kernel vs "
+        print(f"phase 2: bf16 D = {d} E = {e} flash {name}, 8 draws "
+              f"(kernel vs "
               f"plain, kernel vs float64, plain vs float64): "
               + ", ".join(f"({a:.2e}, {k:.2e}, {p:.2e})"
                           for a, k, p in dists) + f" [{card}]")
@@ -871,6 +945,14 @@ def kernels_vs_plain(dev, card, sfu_rate):
     b = cuda(wide_rng.standard_normal((m, e)))
     for which, normalize in (("direct", False), ("flash", True)):
         kernel = getattr(_build, which.upper())
+        library_ms = None
+        if normalize:
+            library = library_attention(x, y, b, "gaussian")
+            _, lib_rel = compare(library(), kernel_matvec_torch(
+                x, y, b, kernel_name="gaussian", normalize_rows=True))
+            check(lib_rel <= LIBRARY_TOL,
+                  f"library attention disagrees at E = 512 ({lib_rel:.3e})")
+            library_ms = time_ms(library, 20)
         for tier in TIERS:
             kw = dict(kernel_name="gaussian", normalize_rows=normalize,
                       precision=tier)
@@ -889,11 +971,13 @@ def kernels_vs_plain(dev, card, sfu_rate):
             print(f"phase 2: {which} kernel, N={n} M={m} D={d} E={e} "
                   f"[{tier}]: {ms:.4f} ms in 1 launch, plain "
                   f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({engine}), "
-                  f"max_abs_err vs plain {err:.3e} [{card}]")
+                  f"library {library_ms} ms, max_abs_err vs plain "
+                  f"{err:.3e} [{card}]")
             records.append(dict(name=which, shape=[n, m, d, e],
                                 precision=tier, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound, bound_by=bound_by,
-                                bound_engine=engine, max_abs_err=err))
+                                bound_engine=engine, max_abs_err=err,
+                                library_ms=library_ms))
     return records
 
 
@@ -964,63 +1048,103 @@ def main_path(card, datasets):
 
 
 def main_path_kernels(card, sfu_rate, entries, datasets, per_run):
-    """Phase 4: each kernel at the main path's shapes, timed beside its
-    plain version, its bound and the library; appends to `entries`."""
-    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+    """Phase 4: each kernel at the main path's shapes, and the large-D
+    wide kernel at WIDE_TIMING's, timed beside its plain version, its
+    bound and the library; appends to `entries`."""
+    from kmb_tpu_torch.ops import _build
+    from kmb_tpu_torch.ops.product import (
+        kernel_matvec, kernel_matvec_torch, signal_plan)
 
-    for name, which, _ in MAIN_PATH:
+    shapes = [(name, name, which, None) for name, which, _ in MAIN_PATH]
+    shapes += [(label, name, "flash" if datasets[name]["normalize_rows"]
+                else "direct", e) for label, name, e in WIDE_TIMING]
+    for label, name, which, e in shapes:
+        on_main_path = e is None
         arrays = datasets[name]
         y = cuda(arrays["source_points"])
         x = y if arrays["same_points"] else cuda(arrays["target_points"])
-        b = cuda(arrays["source_signal"])
+        if on_main_path:
+            b = cuda(arrays["source_signal"])
+        else:   # a signal of e columns from a seed
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(e)
+            b = torch.randn((len(y), e), generator=gen, device="cuda")
         n, d = x.shape
         m, e = b.shape
         normalize = bool(arrays["normalize_rows"])
         kw = dict(kernel_name=arrays["kernel"], normalize_rows=normalize)
         library_ms = None
-        if which == "flash":
-            q, k, v = (t[None, None] for t in (x, y, b))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_out = sdpa(q, k, v, scale=1.0)[0, 0]
-            _, lib_rel = compare(lib_out, kernel_matvec_torch(x, y, b, **kw))
+        library = library_attention(x, y, b, arrays["kernel"]) if (
+            which == "flash") else None
+        if library is not None:
+            _, lib_rel = compare(library(), kernel_matvec_torch(x, y, b, **kw))
             # A yardstick only: it must compute the same function, at
             # whatever precision the library picks.
             check(lib_rel <= LIBRARY_TOL,
                   f"library attention disagrees ({lib_rel:.3e})")
             print(f"library attention vs plain: relative {lib_rel:.3e}")
-            library_ms = time_ms(lambda: sdpa(q, k, v, scale=1.0), 20)
+            library_ms = time_ms(library, 20)
+        kernel = getattr(_build, which.upper())
         for tier in TIERS:
             kwt = dict(kw, precision=tier)
-            got = kernel_matvec(x, y, b, **kwt)
+            # As the main path's engine calls it: y fixed, staged once.
+            kwk = dict(kwt, fixed_source=True)
+            if on_main_path:   # its launches are phase 3's
+                launches = per_run[name, tier]
+                staged_before = kernel.staged_bytes
+                got = kernel_matvec(x, y, b, **kwk)
+                staged = kernel.staged_bytes - staged_before
+            else:   # off the main path: the launches of its checked call
+                _build.reset_launch_counts()
+                got = kernel_matvec(x, y, b, **kwk)
+                launches, staged = kernel.launches, kernel.staged_bytes
+                eblocks = signal_plan(e, d > 8, tier == "bfloat16")[1]
+                check((launches, kernel.wide_launches, kernel.wide_eblocks)
+                      == (1, 1, eblocks),
+                      f"{label} {tier}: launches (all, wide, E blocks) "
+                      f"{(launches, kernel.wide_launches, kernel.wide_eblocks)}"
+                      f", not one wide launch of {eblocks} E blocks")
+            stages, resident, _ = kernel.last_staging
             ref = kernel_matvec_torch(x, y, b, **kwt)
             err, rel = compare(got, ref)
             check(rel <= KERNEL_TOL[tier],
-                  f"{name} {tier}: kernel vs plain {rel:.3e}")
+                  f"{label} {tier}: kernel vs plain {rel:.3e}")
             del got, ref
             reps = 3 if n * m > 10**9 else 10
-            ms = time_ms(lambda: kernel_matvec(x, y, b, **kwt), reps)
+            ms = time_ms(lambda: kernel_matvec(x, y, b, **kwk), reps)
             plain_ms = time_ms(lambda: kernel_matvec_torch(x, y, b, **kwt),
                                2)
-            device_ms = kernel_device_ms(lambda: kernel_matvec(x, y, b,
-                                                               **kwt))
+            device_ms = kernel_device_ms(
+                lambda: kernel_matvec(x, y, b, **kwk), call_ms=ms)
             kernel_alone = (None if device_ms is None
                             else round(device_ms, 4))
             bound, bound_by, engine = bound_ms(n, m, d, e, which, normalize,
                                                tier, sfu_rate)
             lib = None if library_ms is None else round(library_ms, 4)
-            print(f"{which} kernel, {name} [{tier}]: {ms:.4f} ms (kernel "
+            staged_rate = None
+            if staged:   # the large-D wide kernel's L2 stream
+                staged_rate = staged / ((device_ms or ms) * 1e-3)
+            else:
+                staged = None
+            print(f"{which} kernel, {label} [{tier}]: {ms:.4f} ms (kernel "
                   f"alone {kernel_alone} ms), plain "
                   f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({engine}), "
                   f"library {lib} ms, {n * m / (ms * 1e-3):.4e} pairs/s, "
-                  f"max_abs_err vs plain {err:.3e} [{card}]")
+                  + ("" if staged is None else
+                     f"staged {staged / 1e9:.3f} GB at "
+                     f"{staged_rate / 1e12:.3f} TB/s ({stages} stages, x "
+                     f"{'resident' if resident else 'streamed'}), ")
+                  + f"max_abs_err vs plain {err:.3e} [{card}]")
             entries.append(dict(
                 name=which, route="cuda",
                 source=kernel_source(d, e),
-                replaces=REPLACES[which], launches=per_run[name, tier],
+                replaces=REPLACES[which], launches=launches,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=library_ms, at=name,
+                bound_by=bound_by, library_ms=library_ms, at=label,
                 precision=tier, bound_engine=engine,
-                kernel_device_ms=device_ms, wide_mode=e > 8))
+                kernel_device_ms=device_ms, wide_mode=e > 8,
+                main_path=on_main_path, staged_bytes=staged,
+                staged_bytes_per_s=staged_rate))
         del x, y, b
         torch.cuda.empty_cache()
 
@@ -1213,7 +1337,8 @@ def solver_path(dev, card, sfu_rate, entries, time_ms):
               f"solver path {name} E={e} {tier}: kernel vs plain {rel:.3e}")
         del got, ref
         ms = time_ms(lambda: kernel_matvec(y, y, b, **kw), 3)
-        device_ms = kernel_device_ms(lambda: kernel_matvec(y, y, b, **kw), 2)
+        device_ms = kernel_device_ms(lambda: kernel_matvec(y, y, b, **kw), 2,
+                                     call_ms=ms)
         plain_ms = time_ms(lambda: kernel_matvec_torch(y, y, b, **kw), 1)
         n, d = y.shape
         bound, bound_by, engine = bound_ms(n, n, d, e, "direct", False,
@@ -1779,7 +1904,7 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
         del got, ref
         ms = time_ms(lambda: sharded.ring_chunk(xs, ys, bs, **chunk), 5)
         device_ms = kernel_device_ms(
-            lambda: sharded.ring_chunk(xs, ys, bs, **chunk))
+            lambda: sharded.ring_chunk(xs, ys, bs, **chunk), call_ms=ms)
         plain_ms = time_ms(lambda: kernel_matvec_torch(xs, ys, bs, **plain),
                            1)
         library_ms = None
@@ -2322,7 +2447,8 @@ def harness_path(card, sfu_rate, kernels, entries, datasets):
           f"sweep shape: kernel vs plain {krel:.3e}")
     del got, ref
     ms = time_ms(lambda: kernel_matvec(x, x, b, **kw), 2)
-    device_ms = kernel_device_ms(lambda: kernel_matvec(x, x, b, **kw), 2)
+    device_ms = kernel_device_ms(lambda: kernel_matvec(x, x, b, **kw), 2,
+                                 call_ms=ms)
     bound, bound_by, engine = bound_ms(SWEEP_N, SWEEP_N, 3, 1, "direct",
                                        False, "float32", sfu_rate)
     print(f"phase 9: direct kernel, normal D3 {SWEEP_N}^2 (the sweep's "

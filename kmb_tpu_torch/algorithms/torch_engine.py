@@ -123,6 +123,7 @@ class TorchProduct(_TorchAlgorithm, BaseProduct):
             density_estimation=self.density_estimation,
             precision=self.precision,
             block_n=self.block_n,
+            fixed_source=True,   # self.y stays as prepare_data staged it
         )
         self.res = hard_fence(out)
 

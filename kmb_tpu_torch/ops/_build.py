@@ -13,11 +13,15 @@ source is rebuilt and an unchanged one is reused.  Beside it,
 memory and spills of every kernel, and each compile's seconds).
 
 Each kernel is a `CudaKernel`: a callable that launches through ctypes,
-raises on a non-zero `cudaError_t`, and counts its launches.
+raises on a non-zero `cudaError_t`, and counts its launches and the bytes
+the large-D wide kernel's launches staged (as the library reports them);
+inside `launch_timer()` the library brackets each launch with CUDA events
+on its stream, the kernel's device time without the profiler.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,7 +44,7 @@ SOURCES = (SOURCE, *(CSRC / f"small_d_{dp}_{scheme}.cu" for dp in (3, 8)
            CSRC / "large_d_wide_tf32.cu", CSRC / "large_d_wide_bf16.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "wide.cuh",
            CSRC / "small_d.cuh", CSRC / "small_d_wide.cuh",
-           CSRC / "large_d.cuh")
+           CSRC / "large_d.cuh", CSRC / "large_d_wide.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # Extra -D switches of the sources, set by `use_defines` (measurement
@@ -49,6 +53,7 @@ DEFINES = ()
 
 _lock = threading.Lock()
 _library = None
+_TIMER_CAP = 1 << 16   # launches one launch_timer() block may time
 
 
 def find_nvcc() -> str | None:
@@ -178,10 +183,23 @@ def load_library() -> ctypes.CDLL:
             # d, nc, kernel, flash, den, bf16 -> rows, blocks per SM.
             lib.kmb_plan.argtypes = [i32] * 6 + [ctypes.POINTER(i32)] * 2
             lib.kmb_plan.restype = i32
+            lib.kmb_timer_begin.argtypes = []
+            lib.kmb_timer_begin.restype = i32
+            lib.kmb_timer_end.argtypes = [ctypes.POINTER(ctypes.c_float), i32,
+                                          ctypes.POINTER(i32)]
+            lib.kmb_timer_end.restype = i32
+            lib.kmb_last_staging.argtypes = [ctypes.POINTER(i32)] * 2 + [
+                ctypes.POINTER(ctypes.c_longlong)]
+            lib.kmb_last_staging.restype = None
             lib.kmb_error_string.argtypes = [i32]
             lib.kmb_error_string.restype = ctypes.c_char_p
             _library = lib
     return _library
+
+
+def _raise(lib, what, code):
+    raise RuntimeError(f"{what} failed: CUDA error {code} "
+                       f"({lib.kmb_error_string(code).decode()})")
 
 
 def plan(d, nc, kernel, flash, den, bf16) -> tuple[int, int]:
@@ -191,9 +209,7 @@ def plan(d, nc, kernel, flash, den, bf16) -> tuple[int, int]:
     code = lib.kmb_plan(d, nc, kernel, int(flash), int(den), int(bf16),
                         ctypes.byref(rows), ctypes.byref(per_sm))
     if code != 0:
-        raise RuntimeError(
-            f"kmb_plan failed: CUDA error {code} "
-            f"({lib.kmb_error_string(code).decode()})")
+        _raise(lib, "kmb_plan", code)
     return rows.value, per_sm.value
 
 
@@ -203,13 +219,18 @@ class CudaKernel:
     mode (a signal of more than 8 columns on the tensor cores), and
     `wide_eblocks` the E blocks of those launches (blocks of signal
     columns on the grid's z dimension, each computing the kernel values
-    once)."""
+    once).  `staged_bytes` sums the bytes the large-D wide kernel's TMA
+    loads moved, and `last_staging` is the last launch's (stages of its
+    ring, x resident, bytes), as the library reports them (zeros for the
+    other kernels)."""
 
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
         self.wide_launches = 0
         self.wide_eblocks = 0
+        self.staged_bytes = 0
+        self.last_staging = (0, 0, 0)
 
     def __call__(self, *args, eblocks: int = 0) -> None:
         """Launch; `eblocks` > 0 marks a launch of the wide mode with that
@@ -217,12 +238,16 @@ class CudaKernel:
         lib = load_library()
         code = getattr(lib, self.symbol)(*args)
         if code != 0:
-            raise RuntimeError(
-                f"{self.symbol} launch failed: CUDA error {code} "
-                f"({lib.kmb_error_string(code).decode()})")
+            _raise(lib, f"{self.symbol} launch", code)
+        stages, resident = ctypes.c_int(0), ctypes.c_int(0)
+        staged = ctypes.c_longlong(0)
+        lib.kmb_last_staging(ctypes.byref(stages), ctypes.byref(resident),
+                             ctypes.byref(staged))
         self.launches += 1
         self.wide_launches += int(eblocks > 0)
         self.wide_eblocks += eblocks
+        self.staged_bytes += staged.value
+        self.last_staging = (stages.value, resident.value, staged.value)
 
 
 DIRECT = CudaKernel("kmb_direct_matvec")
@@ -230,8 +255,37 @@ FLASH = CudaKernel("kmb_flash_matvec")
 KERNELS = (DIRECT, FLASH)
 
 
+@contextlib.contextmanager
+def launch_timer():
+    """Time every kernel launch inside the block on the card.  The library
+    records CUDA events on the launch's stream just before and just after
+    each `cudaLaunchKernel` (so the host's work before a launch, such as
+    encoding tensor maps, is not counted), and needs no profiler.  Yields
+    a list that, when the block ends, holds each launch's device time in
+    ms, in order; leaving the block waits for the timed launches."""
+    lib = load_library()
+    code = lib.kmb_timer_begin()
+    if code != 0:
+        _raise(lib, "kmb_timer_begin", code)
+    times = []
+    ms = (ctypes.c_float * _TIMER_CAP)()
+    count = ctypes.c_int(0)
+    try:
+        yield times
+    finally:   # the timer stops also when the block raises
+        code = lib.kmb_timer_end(ms, _TIMER_CAP, ctypes.byref(count))
+    if code != 0:
+        _raise(lib, "kmb_timer_end", code)
+    if count.value > _TIMER_CAP:
+        raise RuntimeError(f"launch_timer: {count.value} launches, more "
+                           f"than the {_TIMER_CAP} it can time")
+    times.extend(ms[:count.value])
+
+
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
         kernel.wide_launches = 0
         kernel.wide_eblocks = 0
+        kernel.staged_bytes = 0
+        kernel.last_staging = (0, 0, 0)

@@ -69,6 +69,22 @@ template <> struct KernelMap<kExponential> {
   __device__ static float logit(float g) { return g; }
 };
 
+// The large-D form from <x, y> and the norms |x|^2, |y|^2 the wrapper
+// computed: the signed, scaled squared distance 2<x, y> - |x|^2 - |y|^2 (or
+// its negation, clamped at 0 where the map takes only g >= 0), or the dot
+// product itself.
+template <class Map>
+__device__ __forceinline__ float expanded_form(float dot, float xq, float yq) {
+  if constexpr (Map::kDot) {
+    return dot;
+  } else if constexpr (Map::kNegate) {
+    return fmaf(2.f, dot, -(xq + yq));
+  } else {
+    const float g = fmaf(-2.f, dot, xq + yq);
+    return Map::kClamp ? fmaxf(g, 0.f) : g;
+  }
+}
+
 struct Args {
   const void* x;     // (n, d) target points: f32, or bf16 in the large-D bf16 form
   const void* y;     // (m, d) source points, as x
@@ -95,13 +111,15 @@ struct Args {
 template <int TILE>
 struct Split {
   int begin, end;
-  __device__ explicit Split(const Args& a) {
-    long long per = (a.m_eff + gridDim.x - 1) / gridDim.x;
+  // Split s of `splits` over m_eff columns (also the host's view, for counts).
+  __host__ __device__ Split(int m_eff, unsigned splits, unsigned s) {
+    long long per = (m_eff + splits - 1) / splits;
     per = (per + TILE - 1) / TILE * TILE;
-    const long long b0 = blockIdx.x * per;
-    begin = (int)(b0 < a.m_eff ? b0 : a.m_eff);
-    end = (int)(b0 + per < a.m_eff ? b0 + per : a.m_eff);
+    const long long b0 = s * per;
+    begin = (int)(b0 < m_eff ? b0 : m_eff);
+    end = (int)(b0 + per < m_eff ? b0 + per : m_eff);
   }
+  __device__ explicit Split(const Args& a) : Split(a.m_eff, gridDim.x, blockIdx.x) {}
 };
 
 // Per-row accumulation state, in registers.  DEN: accumulate the row sum of
@@ -224,30 +242,50 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
 
 // ---- host side -------------------------------------------------------------
 
-// One kernel instantiation, chosen at run time: the kernel function, its
-// block, dynamic shared memory and target rows per block.
-struct Launch {
-  const void* fn = nullptr;
-  int threads = 0;
-  int smem = 0;
-  int rows = 0;
-};
 
 // What selects an instantiation.
 struct Shape {
   int d;       // small D: padded coordinates (3 or 8); large D: words per row
   int nc;      // signal columns: 1, 2, 4 or 8; above 8 the wide mode's
                // columns per block of the grid's z dimension (16, 64 or 256
-               // at small D, 16 at large D)
+               // at small D; 16, 32, and in bf16 64, at large D)
   int kernel;  // KernelId
   bool flash, den, bf16;
   bool large;  // D > 8: the tensor-core form
 };
 
+// One kernel instantiation, chosen at run time: the kernel function, its
+// block, dynamic shared memory and target rows per block, and for kernels
+// that take more than the Args (the large-D wide kernel's tensor maps) the
+// function that prepares them and launches.
+struct Launch {
+  const void* fn = nullptr;
+  int threads = 0;
+  int smem = 0;
+  int rows = 0;
+  cudaError_t (*run)(const Shape&, const Launch&, const Args&, dim3, cudaStream_t) = nullptr;
+};
+
+// Launch a kernel (product.cu).  While the launch timer is on
+// (kmb_timer_begin / kmb_timer_end), CUDA events are recorded on the stream
+// just before and just after cudaLaunchKernel, so nothing the host does
+// before a launch (the large-D wide kernel's tensor maps) is timed.
+cudaError_t launch_kernel(const void* fn, dim3 grid, dim3 block, void** params, size_t smem,
+                          cudaStream_t stream);
+
+// What the last launch staged through TMA (the large-D wide kernel sets it,
+// the others leave it zero): its ring's stages, whether x stayed resident,
+// and the bytes all its blocks' loads moved, as their boxes count them.
+struct Staging {
+  int stages, resident;
+  long long bytes;
+};
+extern Staging last_staging;
+
 // Defined in small_d_{3,8}_{direct,flash}.cu and large_d_{tf32,bf16}.cu
 // (signals of 1, 2, 4 or 8 columns), small_d_wide_{3,8}_{tf32,bf16}.cu and
-// large_d_wide_{tf32,bf16}.cu (the wide mode, nc > 8); each returns false
-// for a shape it has no instantiation of.
+// large_d_wide_{tf32,bf16}.cu (the wide mode, nc > 8; the latter with a
+// `run`); each returns false for a shape it has no instantiation of.
 bool small_d_3_direct_launch(const Shape& s, Launch* out);
 bool small_d_3_flash_launch(const Shape& s, Launch* out);
 bool small_d_8_direct_launch(const Shape& s, Launch* out);

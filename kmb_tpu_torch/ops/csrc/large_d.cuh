@@ -32,10 +32,8 @@
 // needs it), apply the map with the MUFU approximations, mask (only tiles
 // that hold the ragged end or the diagonal take the masked path), and
 // accumulate the signal.  Up to 8 columns that is FFMAs on the FP32 units
-// from a staged b tile.  Above 8 (KMB_WIDE, at the end of this file) it is
-// a second wgmma product of the fragments with a staged signal tile
-// (wide.cuh), 3xTF32 in the f32 tiers, so no weight is rounded below f32
-// accuracy.  The direct scheme sums per thread and merges the quad (the
+// from a staged b tile.  (Above 8 columns the wide-signal kernel of
+// large_d_wide.cuh takes the call.)  The direct scheme sums per thread and merges the quad (the
 // four lanes of a row) with shuffles once, after the last tile.  The flash
 // scheme keeps the FlashAttention-2 order: the tile's row max from the
 // fragment and two quad shuffles, one rescale per row per tile, then exp2
@@ -56,12 +54,6 @@
 
 #ifndef KMB_BF16
 #error "define KMB_BF16 to 0 (3xTF32) or 1 (bf16)"
-#endif
-#ifndef KMB_WIDE
-#define KMB_WIDE 0  // 1: the wide-signal kernel (large_d_wide_{tf32,bf16}.cu)
-#endif
-#if KMB_WIDE
-#include "wide.cuh"
 #endif
 
 namespace kmb {
@@ -109,82 +101,6 @@ __device__ __forceinline__ int y_word(int r, int k) {
 __device__ __forceinline__ unsigned long long y_desc(const unsigned* y_chunk, int ks) {
   const unsigned addr = smem_addr(y_chunk + ks * 64);
   return (unsigned long long)((addr & 0x3FFFF) >> 4) | (8ull << 16) | (64ull << 32);
-}
-
-// D (64 x 128, f32) = A (64 x k, registers) B (k x 128, shared, K-major)
-// + (scale_d ? D : 0).  Accumulator fragment: d[j] holds rows g and g + 8
-// of the warp's 16, columns 8j + 2t and 8j + 2t + 1.
-__device__ __forceinline__ void wgmma(float (&d)[16][4], const unsigned (&a)[4],
-                                      unsigned long long b, int scale_d) {
-  if constexpr (kBf16) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63 "
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63 "
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
-        "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
 }
 
 // ---- the kernel ---------------------------------------------------------------
@@ -281,15 +197,16 @@ struct LargeD {
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) wgmma(acc, ah[ks], y_desc(y_hi, ks), 1);
+      for (int ks = 0; ks < kSteps; ++ks)
+        wgmma_rs<kCols, kBf16>(acc, ah[ks], y_desc(y_hi, ks), 1);
     } else {
       fence_acc(part);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kSteps; ++ks) {
-        wgmma(part, al[ks], y_desc(y_hi, ks), ks > 0);
-        wgmma(part, ah[ks], y_desc(y_lo, ks), 1);
-        wgmma(part, ah[ks], y_desc(y_hi, ks), 1);
+        wgmma_rs<kCols, kBf16>(part, al[ks], y_desc(y_hi, ks), ks > 0);
+        wgmma_rs<kCols, kBf16>(part, ah[ks], y_desc(y_lo, ks), 1);
+        wgmma_rs<kCols, kBf16>(part, ah[ks], y_desc(y_hi, ks), 1);
       }
     }
     wgmma_commit();
@@ -317,14 +234,7 @@ struct LargeD {
   // The signed, scaled form from <x, y> and the norms; clamped where the
   // map takes only g >= 0.
   static __device__ __forceinline__ float form(float dot, float xq, float yq) {
-    if constexpr (Map::kDot) {
-      return dot;
-    } else if constexpr (Map::kNegate) {
-      return fmaf(2.f, dot, -(xq + yq));
-    } else {
-      const float g = fmaf(-2.f, dot, xq + yq);
-      return Map::kClamp ? fmaxf(g, 0.f) : g;
-    }
+    return expanded_form<Map>(dot, xq, yq);
   }
 
   // bf16 flash, first pass: each row's max over this tile's logits (from
@@ -542,234 +452,6 @@ __global__ void __launch_bounds__(kThreads, 1) large_d_kernel(const Args a) {
   }
 }
 
-#if KMB_WIDE
-// ---- the wide-signal mode (E > 8) ------------------------------------------------
-//
-// The same form product and pipeline, with the signal product of each tile
-// on the tensor cores (wide.cuh): the tile's kernel values, computed in
-// place in the form accumulator, are the A operand of wgmma m64n16 steps
-// against a staged tile of 128 source columns x 16 signal columns.  The
-// signal tiles take the room of one stage: three stages, loads one step
-// ahead, and a ring of three tile buffers (|y|^2 and the signal tile),
-// 200 KB in 3xTF32.
-constexpr int kWideStages = 3;
-constexpr int kWideAhead = 1;
-constexpr int kWideEB = 16;  // signal columns per block of the grid's z dimension
-using WideSig = WideSignal<kCols, kWideEB, kBf16>;
-constexpr int kWideTileBuf = kCols + WideSig::kWords;  // |y|^2, then the signal tile
-
-__host__ __device__ constexpr int wide_smem_bytes() {
-  return (kWideStages * kStageWords + kWideStages * kWideTileBuf) * 4;
-}
-
-template <int K, bool FLASH>
-struct LargeDWide {
-  using L = LargeD<K, 1, FLASH, false, kBf16>;  // staging and the form product
-  using Map = KernelMap<K>;
-  static constexpr int NB = WideSig::kBlocks;
-
-  // Fold one tile into the running state: forms (flash: logits) in place,
-  // masks, the flash rescale, then the signal product from the fragments.
-  // MASKED: the tile holds the split's ragged end or the diagonal.
-  template <bool MASKED>
-  static __device__ __forceinline__ void epilogue(float (&acc)[16][4], WideRows<NB, FLASH>& st,
-                                                  const float (&xq)[2], const unsigned* tile_buf,
-                                                  int j0, int end, const int (&diag_col)[2],
-                                                  int t) {
-    const float* ysq = reinterpret_cast<const float*>(tile_buf);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c0 = j * 8 + 2 * t;
-      float yq[2] = {0.f, 0.f};
-      if constexpr (!Map::kDot) load_vec<2>(ysq + c0, yq);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& v = acc[j][2 * h + e];
-          v = L::form(v, xq[h], yq[e]);
-          if constexpr (FLASH) {
-            v = Map::logit(v);
-            if (MASKED && (j0 + c0 + e >= end || j0 + c0 + e == diag_col[h])) v = kNegInf;
-          }
-        }
-    }
-    if constexpr (FLASH) st.rescale(acc);
-    float tsum[2] = {0.f, 0.f};
-    auto weights = [&](int j, float (&w)[4]) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int h = k / 2, col = j0 + j * 8 + 2 * t + k % 2;
-        const float v = acc[j][k];
-        float p;
-        if constexpr (FLASH) {
-          p = ex2(v - st.m[h]);
-          // A masked logit of a row with no valid column yet would give
-          // exp2(0) = 1.
-          if (MASKED && v == kNegInf) p = 0.f;
-        } else {
-          p = Map::value(v);
-          if (MASKED && (col >= end || col == diag_col[h])) p = 0.f;
-        }
-        tsum[h] += p;
-        w[k] = kBf16 ? round_bf16(p) : p;
-      }
-    };
-    WideSig::contract(st.grp, tile_buf + kCols, weights);
-    st.end_tile(tsum, kCols);
-  }
-};
-
-template <int K, bool FLASH>
-__global__ void __launch_bounds__(kThreads, 1) large_d_wide_kernel(const Args a) {
-  using W = LargeDWide<K, FLASH>;
-  using L = typename W::L;
-  constexpr int NB = W::NB;
-  extern __shared__ __align__(128) unsigned smem[];
-  unsigned* stages = smem;
-  unsigned* tile_bufs = smem + kWideStages * kStageWords;
-
-  const Split<kCols> split(a);
-  const int row0 = blockIdx.y * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wrow = warp * 16;  // the warp's rows: warpgroup warp / 4, 16 each
-  const int g = lane / 4, t = lane % 4;
-
-  float xq[2];
-  int diag_col[2];  // local source column on the global diagonal, or -1
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = row0 + wrow + h * 8 + g;
-    xq[h] = (!W::Map::kDot && i < a.n) ? a.xsq[i] : 0.f;
-    const long long jd = (long long)i + a.shift;
-    diag_col[h] = (a.diag && jd >= 0 && jd < a.m_eff) ? (int)jd : -1;
-  }
-  // The block's diagonal runs through source columns [dlo, dhi).
-  const long long dlo = (long long)row0 + a.shift, dhi = dlo + kRows;
-
-  float acc[16][4], part[16][4];  // part: 3xTF32, a chunk's product
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = part[j][k] = 0.f;
-  WideRows<NB, FLASH> st;
-  unsigned ah[L::kSteps][4], al[L::kSteps][4];
-
-  const int chunks = (a.words + kChunk - 1) / kChunk;
-  const int tiles = (split.end - split.begin + kCols - 1) / kCols;
-  const int steps = tiles * chunks;
-  // Step q is chunk q % chunks of tile q / chunks, staged in stage
-  // q % kWideStages; tile t's |y|^2 and signal tile go to tile buffer
-  // t % kWideStages with its first chunk, issued at step t * chunks - 1,
-  // after the epilogue of tile t - 3 (step (t - 2) * chunks) at any chunks.
-  auto issue = [&](int q) {
-    if (q < steps) {
-      const int qt = q / chunks, qc = q % chunks;
-      const int j0 = split.begin + qt * kCols;
-      L::load(stages + (q % kWideStages) * kStageWords, nullptr, a, row0, j0, split.end,
-              qc * kChunk, false);
-      if (qc == 0) {
-        unsigned* tb = tile_bufs + (qt % kWideStages) * kWideTileBuf;
-        if constexpr (!W::Map::kDot) {
-          if (threadIdx.x < kCols) {
-            const int j = j0 + threadIdx.x;
-            const bool valid = j < split.end;
-            cp_async_small<4>(tb + threadIdx.x, a.ysq + (valid ? j : 0), valid);
-          }
-        }
-        WideSig::template load<kThreads>(tb + kCols, a, j0);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-  // The epilogue of a tile runs once its last wgmma group has finished:
-  // at the next step, or after the loop.
-  int done_tile = -1;
-  auto epilogue = [&]() {
-    const int j0 = split.begin + done_tile * kCols;
-    const unsigned* tb = tile_bufs + (done_tile % kWideStages) * kWideTileBuf;
-    const bool masked = j0 + kCols > split.end || (a.diag && j0 < dhi && j0 + kCols > dlo);
-    if (masked) {
-      W::template epilogue<true>(acc, st, xq, tb, j0, split.end, diag_col, t);
-    } else {
-      W::template epilogue<false>(acc, st, xq, tb, j0, split.end, diag_col, t);
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
-    done_tile = -1;
-  };
-#pragma unroll
-  for (int q = 0; q < kWideAhead; ++q) issue(q);
-  int tile = 0, chunk = 0;
-  for (int s = 0; s < steps; ++s) {
-    unsigned* stage = stages + (s % kWideStages) * kStageWords;
-    cp_async_wait<kWideAhead - 1>();  // step s has landed (for this thread)
-    fence_async_shared();
-    __syncthreads();                  // ... for all
-    if constexpr (!kBf16) {
-      L::split_y(stage + kXWords);
-      fence_async_shared();
-      __syncthreads();
-    }
-    issue(s + kWideAhead);
-    L::settle(ah, al, acc, part);  // step s - 1's wgmma group
-    if (done_tile >= 0) epilogue();
-    L::load_a(stage, ah, al, wrow, lane);
-    L::multiply(stage, ah, al, acc, part);
-    if (++chunk == chunks) {
-      done_tile = tile++;
-      chunk = 0;
-    }
-  }
-  L::settle(ah, al, acc, part);
-  if (done_tile >= 0) epilogue();
-  cp_async_wait<0>();
-  st.store(a, row0 + wrow + g, t);
-}
-
-template <int K, bool FLASH>
-void fill_wide(Launch* out) {
-  out->fn = reinterpret_cast<const void*>(&large_d_wide_kernel<K, FLASH>);
-  out->threads = kThreads;
-  out->smem = wide_smem_bytes();
-  out->rows = kRows;
-}
-
-template <int K>
-bool pick_wide(const Shape& s, Launch* out) {
-  if (s.nc != kWideEB) return false;  // the wrapper takes E blocks of 16 at D > 8
-  if (s.flash) {
-    if constexpr (K == kInverseDistance) {
-      return false;  // only kernels with a log form run the flash scheme
-    } else {
-      fill_wide<K, true>(out);
-      return true;
-    }
-  }
-  fill_wide<K, false>(out);
-  return true;
-}
-
-}  // namespace
-
-#if KMB_BF16
-bool large_d_wide_bf16_launch(const Shape& s, Launch* out) {
-#else
-bool large_d_wide_tf32_launch(const Shape& s, Launch* out) {
-#endif
-  if (!s.large || s.d <= 0 || s.d % 4 != 0) return false;
-  switch (s.kernel) {
-    case kGaussian: return pick_wide<kGaussian>(s, out);
-    case kAbsExp: return pick_wide<kAbsExp>(s, out);
-    case kInverseDistance: return pick_wide<kInverseDistance>(s, out);
-    case kExponential: return pick_wide<kExponential>(s, out);
-    default: return false;
-  }
-}
-
-#else  // the narrow mode: signals of 1, 2, 4 or 8 columns
 
 // Runtime shape -> instantiation.
 template <int K, int NC, bool FLASH, bool DEN>
@@ -821,7 +503,5 @@ bool large_d_tf32_launch(const Shape& s, Launch* out) {
     default: return false;
   }
 }
-
-#endif  // KMB_WIDE
 
 }  // namespace kmb

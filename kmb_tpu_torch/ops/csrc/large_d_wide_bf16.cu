@@ -1,4 +1,3 @@
 // The large-D tile in the wide-signal mode, one bf16 pass (bfloat16 tier).
 #define KMB_BF16 1
-#define KMB_WIDE 1
-#include "large_d.cuh"
+#include "large_d_wide.cuh"

@@ -1,4 +1,3 @@
 // The large-D tile in the wide-signal mode, 3xTF32 (float32 tiers).
 #define KMB_BF16 0
-#define KMB_WIDE 1
-#include "large_d.cuh"
+#include "large_d_wide.cuh"

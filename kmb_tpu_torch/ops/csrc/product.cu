@@ -39,16 +39,16 @@
 //
 //   E <= 8 (padded to 1, 2, 4 or 8 columns): the E multiply-adds of a pair
 //     run on the FP32 units, from a staged signal record per source column.
-//   E > 8, the wide mode (wide.cuh; small_d_wide.cuh and large_d.cuh with
-//     KMB_WIDE): the kernel values of a tile are the A operand of wgmma
-//     products with a staged signal tile, on the tensor cores (3xTF32 in
-//     the float32 tiers, one bf16 pass in the bfloat16 tier), for blocks of
-//     signal columns along the grid's z dimension: at small D of 16, 64 or
-//     256, the kernel values computed once per launch up to E = 256; at
-//     large D of 16, the kernel values computed once per block.  The
-//     wrapper stages the signal transposed, padded to whole blocks,
-//     TF32-split or rounded to bf16 (at small D in whole tiles, each
-//     contiguous).
+//   E > 8, the wide mode (wide.cuh; small_d_wide.cuh and large_d_wide.cuh):
+//     the kernel values of a tile are the A operand of wgmma products with
+//     a staged signal tile, on the tensor cores (3xTF32 in the float32
+//     tiers, one bf16 pass in the bfloat16 tier), for blocks of signal
+//     columns along the grid's z dimension: at small D of 16, 64 or 256,
+//     the kernel values computed once per launch up to E = 256; at large D
+//     of 16 or 32 (and 64 in bf16), a warp-specialised kernel fed by TMA,
+//     the kernel values computed once per block.  The wrapper stages the
+//     signal transposed, padded to whole blocks, TF32-split or rounded to
+//     bf16 (at small D in whole tiles, each contiguous).
 
 // Both: when the row blocks alone would leave SMs idle (N = 10^4 gives 79
 // blocks of 128 rows for 132 SMs), the wrapper splits the source range over
@@ -64,9 +64,49 @@
 // product with the signal, and accumulates in f32.  Row sums and the flash normaliser use
 // the unrounded f32 values, as kmb_tpu's kernel_matvec_xla does.
 
+#include <utility>
+#include <vector>
+
 #include "common.cuh"
 
 namespace kmb {
+
+Staging last_staging{0, 0, 0};
+
+namespace {
+
+// The launch timer: while `timing`, each launch's (start, stop) events.
+bool timing = false;
+std::vector<std::pair<cudaEvent_t, cudaEvent_t>> timed;
+
+void release_timed() {
+  for (auto& ev : timed) {
+    cudaEventDestroy(ev.first);
+    cudaEventDestroy(ev.second);
+  }
+  timed.clear();
+}
+
+}  // namespace
+
+cudaError_t launch_kernel(const void* fn, dim3 grid, dim3 block, void** params, size_t smem,
+                          cudaStream_t stream) {
+  if (!timing) return cudaLaunchKernel(fn, grid, block, params, smem, stream);
+  cudaEvent_t start, stop;
+  cudaError_t err = cudaEventCreate(&start);
+  if (err != cudaSuccess) return err;
+  err = cudaEventCreate(&stop);
+  if (err != cudaSuccess) {
+    cudaEventDestroy(start);
+    return err;
+  }
+  timed.emplace_back(start, stop);
+  err = cudaEventRecord(start, stream);
+  if (err == cudaSuccess) err = cudaLaunchKernel(fn, grid, block, params, smem, stream);
+  if (err == cudaSuccess) err = cudaEventRecord(stop, stream);
+  return err;
+}
+
 namespace {
 
 // The instantiation for a shape, its shared memory raised above the 48 KB
@@ -111,9 +151,14 @@ int launch(const Shape& s, const Args& a, int splits, int eblocks, cudaStream_t 
   }
   Args args = a;
   args.words = s.d;
-  void* params[] = {&args};
-  err = cudaLaunchKernel(l.fn, dim3(splits, (unsigned)row_blocks, eblocks), dim3(l.threads),
-                         params, l.smem, stream);
+  const dim3 grid(splits, (unsigned)row_blocks, eblocks);
+  last_staging = Staging{0, 0, 0};
+  if (l.run != nullptr) {
+    err = l.run(s, l, args, grid, stream);
+  } else {
+    void* params[] = {&args};
+    err = launch_kernel(l.fn, grid, dim3(l.threads), params, l.smem, stream);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -174,6 +219,38 @@ int kmb_flash_matvec(const void* x, const void* y, const void* b, const void* b_
                                      diag, shift, ldb);
   return kmb::launch(kmb::make_shape(d, nc, kernel, true, false, bf16), a, splits, eblocks,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The launch timer.  kmb_timer_begin starts bracketing every launch with
+// CUDA events; kmb_timer_end stops, waits for the timed launches, writes
+// their number to `count` and the device time (ms) of the first `cap` to
+// `ms`, and frees the events.  Both return a cudaError_t.
+int kmb_timer_begin() {
+  kmb::release_timed();
+  kmb::timing = true;
+  return cudaSuccess;
+}
+
+int kmb_timer_end(float* ms, int cap, int* count) {
+  kmb::timing = false;
+  cudaError_t err = cudaSuccess;
+  *count = static_cast<int>(kmb::timed.size());
+  for (int i = 0; i < *count; ++i) {
+    float t = 0.f;
+    if (err == cudaSuccess) err = cudaEventSynchronize(kmb::timed[i].second);
+    if (err == cudaSuccess) err = cudaEventElapsedTime(&t, kmb::timed[i].first, kmb::timed[i].second);
+    if (i < cap) ms[i] = t;
+  }
+  kmb::release_timed();
+  return err;
+}
+
+// What the last launch staged (kmb::Staging; zeros but for the large-D
+// wide kernel).
+void kmb_last_staging(int* stages, int* resident, long long* bytes) {
+  *stages = kmb::last_staging.stages;
+  *resident = kmb::last_staging.resident;
+  *bytes = kmb::last_staging.bytes;
 }
 
 const char* kmb_error_string(int code) {

@@ -2,9 +2,9 @@
 // Pallas kernels' MXU accumulation mode (kmb_tpu/ops/product.py,
 // `_accumulate` with acc_mode="mxu", chosen at :560), where a tile of
 // kernel values times the signal tile is one matrix-unit product for any E.
-// Shared by the large-D tile (large_d.cuh with KMB_WIDE: WideSignal's
-// staging and product, WideRows) and the small-D kernel (small_d_wide.cuh:
-// wgmma_rs, WideSignal's shared layout, kGroupColumns).
+// Shared by the large-D wide kernel (large_d_wide.cuh: WideSignal's product
+// on a TMA-staged, 128-byte-swizzled signal tile, WideRows) and the small-D
+// kernel (small_d_wide.cuh: WideSignal's shared layout, kGroupColumns).
 //
 // In the large-D tile each warpgroup holds its 64 target rows' kernel
 // values of a tile of T source columns in registers, in the layout of an
@@ -46,178 +46,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// D (64 x N, f32) = A (64 x k, registers) B (k x N, shared, K-major)
-// + (scale_d ? D : 0); tf32: k = 8, bf16: k = 16.  The accumulator
-// fragment d[j] holds rows g and g + 8 of the warp's 16, columns 8j + 2t
-// and 8j + 2t + 1.
-template <int N, bool BF16>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&a)[4],
-                                         unsigned long long b, int scale_d) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 128,
-                "the signal columns of a warpgroup: 8, 16, 32 or 128");
-  if constexpr (BF16) {
-    if constexpr (N == 8) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %9, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-          "{"
-          "%0, %1, %2, %3 "
-          "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-    if constexpr (N == 16) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %13, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-          "{"
-          "%0, %1, %2, %3, %4, %5, %6, %7 "
-          "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-            "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-    if constexpr (N == 32) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %21, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-          "{"
-          "%0, %1, %2, %3, %4, %5, %6, %7, "
-          "%8, %9, %10, %11, %12, %13, %14, %15 "
-          "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-            "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-            "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-            "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-    if constexpr (N == 128) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %69, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-          "{"
-          "%0, %1, %2, %3, %4, %5, %6, %7, "
-          "%8, %9, %10, %11, %12, %13, %14, %15, "
-          "%16, %17, %18, %19, %20, %21, %22, %23, "
-          "%24, %25, %26, %27, %28, %29, %30, %31, "
-          "%32, %33, %34, %35, %36, %37, %38, %39, "
-          "%40, %41, %42, %43, %44, %45, %46, %47, "
-          "%48, %49, %50, %51, %52, %53, %54, %55, "
-          "%56, %57, %58, %59, %60, %61, %62, %63 "
-          "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-            "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-            "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-            "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-            "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-            "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-            "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-            "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-            "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-            "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-            "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-            "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-            "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-            "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-            "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-            "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-  } else {
-    if constexpr (N == 8) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %9, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-          "{"
-          "%0, %1, %2, %3 "
-          "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-    if constexpr (N == 16) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %13, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-          "{"
-          "%0, %1, %2, %3, %4, %5, %6, %7 "
-          "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-            "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-    if constexpr (N == 32) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %21, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-          "{"
-          "%0, %1, %2, %3, %4, %5, %6, %7, "
-          "%8, %9, %10, %11, %12, %13, %14, %15 "
-          "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-            "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-            "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-            "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-    if constexpr (N == 128) {
-      asm volatile(
-          "{\n"
-          ".reg .pred p;\n"
-          "setp.ne.b32 p, %69, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-          "{"
-          "%0, %1, %2, %3, %4, %5, %6, %7, "
-          "%8, %9, %10, %11, %12, %13, %14, %15, "
-          "%16, %17, %18, %19, %20, %21, %22, %23, "
-          "%24, %25, %26, %27, %28, %29, %30, %31, "
-          "%32, %33, %34, %35, %36, %37, %38, %39, "
-          "%40, %41, %42, %43, %44, %45, %46, %47, "
-          "%48, %49, %50, %51, %52, %53, %54, %55, "
-          "%56, %57, %58, %59, %60, %61, %62, %63 "
-          "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
-          "}\n"
-          : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-            "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-            "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-            "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-            "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-            "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-            "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-            "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-            "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-            "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-            "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-            "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-            "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-            "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-            "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-            "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-    }
-  }
-}
-
 // The signal tile of the wide mode and its product with a tile of kernel
 // values.  T source columns (the product's K) by EB signal columns (its
 // N), staged from the wrapper's transposed signal (a.bt, and a.bt_lo for
@@ -225,8 +53,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const unsigned (&
 // each) in wgmma's no-swizzle K-major layout: 8-row x 16-byte core
 // matrices, side by side along K (128 bytes apart, the descriptor's
 // leading byte offset), row groups 8 x the row's bytes apart (its stride
-// byte offset).
-template <int T, int EB, bool BF16>
+// byte offset).  SW128: staged instead by TMA as the large-D wide kernel
+// does (large_d_wide.cuh), in boxes of EB signal columns x 128 bytes of
+// source columns with the 128-byte swizzle, the boxes side by side along
+// the source columns (sw128_desc).
+template <int T, int EB, bool BF16, bool SW128 = false>
 struct WideSignal {
   static_assert(T % 16 == 0 && EB % 8 == 0, "whole k steps and n blocks");
   static constexpr int kRowWords = BF16 ? T / 2 : T;  // 32-bit words per signal column
@@ -235,47 +66,19 @@ struct WideSignal {
   static constexpr int kSteps = BF16 ? T / 16 : T / 8;  // k steps per tile
   static constexpr int kBlocks = EB / 8;               // accumulator blocks
 
+  // Word of signal column n and 32-bit word k of the tile's source columns
+  // in the no-swizzle layout (the small-D kernel's tiles,
+  // product.py's tile_wide_signal).
   static __device__ __forceinline__ int word(int n, int k) {
     return (n / 8) * (8 * kRowWords) + (k / 4) * 32 + (n % 8) * 4 + k % 4;
   }
 
   // Descriptor of k step s of a staged part: two core matrices along K.
   static __device__ __forceinline__ unsigned long long desc(const unsigned* part, int s) {
+    if constexpr (SW128) return sw128_desc(part, EB, s);
     const unsigned addr = smem_addr(part + s * 64);
     return (unsigned long long)((addr & 0x3FFFF) >> 4) | (8ull << 16) |
            ((unsigned long long)(2 * kRowWords) << 32);
-  }
-
-  // Stage source columns [j0, j0 + T) of this block's E block (blockIdx.z)
-  // with 16-byte cp.async pieces, zero-filled past the padded length a.ldb
-  // (a multiple of 8, so a piece is wholly inside or outside).  Columns
-  // past the split's end keep their values: their weights are exactly 0.
-  // Eight neighbouring threads take piece q of eight neighbouring signal
-  // columns, which lie in distinct banks (a piece of each column for each
-  // thread in turn would put eight on the same four banks); a warp reads
-  // 64 contiguous bytes of each of its eight columns.
-  template <int THREADS>
-  static __device__ __forceinline__ void load(unsigned* tile, const Args& a, int j0) {
-    constexpr int kPieces = kRowWords / 4;  // per signal column and part
-    constexpr int kElems = BF16 ? 8 : 4;    // source columns per piece
-    const size_t c0 = (size_t)blockIdx.z * EB;
-#pragma unroll
-    for (int h = 0; h < (EB * kPieces + THREADS - 1) / THREADS; ++h) {
-      const int idx = h * THREADS + threadIdx.x;
-      if (EB * kPieces % THREADS == 0 || idx < EB * kPieces) {
-        const int n = idx / (8 * kPieces) * 8 + idx % 8, q = idx / 8 % kPieces;
-        const int j = j0 + q * kElems;
-        const bool valid = j < a.ldb;
-        const size_t off = (c0 + n) * a.ldb + (valid ? j : 0);
-        if constexpr (BF16) {
-          cp_async16(tile + word(n, 4 * q), static_cast<const unsigned short*>(a.bt) + off, valid);
-        } else {
-          cp_async16(tile + word(n, 4 * q), static_cast<const float*>(a.bt) + off, valid);
-          cp_async16(tile + kPartWords + word(n, 4 * q), static_cast<const float*>(a.bt_lo) + off,
-                     valid);
-        }
-      }
-    }
   }
 
   // dst += this tile's kernel values times the staged signal tile.

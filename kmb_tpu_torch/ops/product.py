@@ -12,8 +12,9 @@ The twin of kmb_tpu.ops.product.  Three functions:
   products run on the FP32 units; above 8 (the wide mode) each tile of
   kernel values is multiplied by a staged signal tile on the tensor cores,
   in blocks of 16, 64 or 256 columns at D <= 8 (each kernel value computed
-  once per launch up to E = 256) and 16 at D > 8 along the launch's grid
-  (`signal_plan`, `stage_wide_signal`).
+  once per launch up to E = 256) and of 16 or 32 at D > 8 (64 too in the
+  bfloat16 tier) along the launch's grid (`signal_plan`,
+  `stage_wide_signal`).
 - `kernel_matvec`: the dispatch.  CUDA tensors go to the kernels, CPU
   tensors to the plain version; nothing falls back from one to the other.
 
@@ -45,6 +46,7 @@ The contract (kmb_tpu/ops/product.py:663-810):
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Optional
 
 import torch
@@ -62,13 +64,18 @@ _CUDA_KERNEL_ID = {"gaussian": 0, "absolute-exponential": 1,
                    "inverse-distance": 2, "exponential": 3}
 _NARROW_WIDTHS = (1, 2, 4, 8)  # signal columns of the narrow mode
 _WIDE_BLOCKS = (16, 64, 256)    # signal columns per E block, wide mode, D <= 8
-_WIDE_BLOCK_LARGE_D = 16        # ... at D > 8 (csrc/large_d.cuh, kWideEB)
+# ... at D > 8, by tier (csrc/large_d_wide.cuh, supported_eb: 64 columns of
+# 3xTF32 leave its consumers no registers).
+_WIDE_BLOCKS_LARGE_D = {False: (16, 32), True: (16, 32, 64)}
 # The wide mode's float32 tiers: the order of the source columns within
 # each group of 8 in the staged signal (csrc/wide.cuh).
 WIDE_TF32_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # Source columns per tile of the small-D wide kernel (csrc/small_d_wide.cuh,
 # kTile): its signal is staged in whole tiles, each contiguous.
 WIDE_TILE = 32
+# The large-D wide kernel's signal: padded to whole groups of 128 bytes of
+# source columns in both tiers (64 bf16 values), for its TMA loads.
+TMA_SIGNAL_ALIGN = 64
 _MIN_FILL = 0.9  # column splits fill at least this share of every wave
 _MIN_SPLIT_COLUMNS = 512  # ... but give no split fewer source columns
 
@@ -253,6 +260,18 @@ def tf32_split(t):
     return hi, rounded(lo)
 
 
+def tf32_planes(points, rows):
+    """The first `rows` staged points (`_stage_points`, rows of whole 16
+    bytes) as the large-D wide kernel's float32-tier operand: (2, rows, D),
+    their TF32 hi parts then their lo parts (`tf32_split`).  The kernel's
+    TMA loads take y's chunks from both planes into its 3xTF32 product
+    (csrc/large_d_wide.cuh), half again the bytes of f32 points and x.
+    The split takes a dozen elementwise passes over the points, so the
+    wrapper makes it once per source tensor (`_staged_source`), not once
+    per call."""
+    return torch.stack(tf32_split(points[:rows]))
+
+
 def merge_direct_states(num, den):
     """Merge direct states of column splits: (S, N, E) and (S, N, 1) | None."""
     return num.sum(0), None if den is None else den.sum(0)
@@ -320,23 +339,58 @@ def _stage_points(t, scale, *, large, bf16):
     return t.contiguous(), torch.sum(tf * tf, dim=1)
 
 
-def signal_plan(e, large):
+# The last source points staged for the kernels (`_staged_source`): a weak
+# reference to the tensor, its version counter, what shaped the staging,
+# and the staged operands.
+_source_cache = [None]
+
+
+def _drop_source(ref):
+    entry = _source_cache[0]
+    if entry is not None and entry[0] is ref:
+        _source_cache[0] = None
+
+
+def _staged_source(y, key, stage):
+    """`stage()` for the source points `y`, reused while `y` is the same
+    tensor object at the same version and `key` (what shapes the staging)
+    is the same.  For callers that keep `y` fixed across calls
+    (`fixed_source`: an engine's source points, passed to every query),
+    so that the staging (scale, pad, norms and the TF32 planes) runs once
+    per tensor, not once per call.  An in-place change of `y` moves its
+    version counter and is staged anew; a write that bypasses the counter
+    (through `.data`, DLPack or a collective's receive buffer) is not
+    seen, which is why callers opt in.  One entry, dropped with `y`; an
+    inference tensor, which has no version counter, is staged every
+    time."""
+    if y.is_inference():
+        return stage()
+    entry = _source_cache[0]
+    if (entry is not None and entry[0]() is y and entry[1] == y._version
+            and entry[2] == key):
+        return entry[3]
+    staged = stage()
+    _source_cache[0] = (weakref.ref(y, _drop_source), y._version, key,
+                        staged)
+    return staged
+
+
+def signal_plan(e, large, bf16=False):
     """(columns per block, blocks) of an E-column signal in one launch.
 
     E <= 8: one block of 1, 2, 4 or 8 columns, the narrow mode.  Above, the
-    wide mode, blocks along the grid's z dimension: at D <= 8 of 16, 64 or
-    256 columns (the narrowest that holds E, else 256: its warpgroups take
-    half of a block's columns each, beside the kernel values that a block
-    computes once), at D > 8 of 16 (its signal tiles share shared memory
-    with the form's stages).  The kernel values are computed once per
-    block.
+    wide mode, blocks along the grid's z dimension, the narrowest that
+    holds E, else the widest: at D <= 8 of 16, 64 or 256 columns (its
+    warpgroups take half of a block's columns each, beside the kernel
+    values that a block computes once), at D > 8 of 16 or 32, and 64 in
+    the bfloat16 tier (`bf16`; the signal sums share the consumers'
+    registers with the form's accumulators).  The kernel values are
+    computed once per block.
     """
     if e <= 8:
         return next(w for w in _NARROW_WIDTHS if e <= w), 1
-    if large:
-        eb = _WIDE_BLOCK_LARGE_D
-    else:
-        eb = next((w for w in _WIDE_BLOCKS if e <= w), _WIDE_BLOCKS[-1])
+    widths = _WIDE_BLOCKS_LARGE_D[bool(bf16)] if large else _WIDE_BLOCKS
+    eb = next((w for w in widths if e <= w), widths[-1])
     return eb, -(-e // eb)
 
 
@@ -397,6 +451,22 @@ def tile_wide_signal(part, eb):
     return v.contiguous().view(blocks, tiles, eb * WIDE_TILE)
 
 
+def tma_signal(hi, lo):
+    """A staged signal of `stage_wide_signal` (align=TMA_SIGNAL_ALIGN), its
+    parts (width, ldb), in the layout the large-D wide kernel's TMA loads
+    read: groups of 128 bytes of source columns, each group of all signal
+    columns contiguous -- (ldb / 64, width, 64) bf16, or (2, ldb / 32,
+    width, 32) f32 with the TF32 lo part after the hi part -- so that one
+    load takes a tile's 128 source columns of an E block (and both parts)
+    into shared memory (csrc/large_d_wide.cuh, WideSignal)."""
+    if lo is None:   # bf16: 64 source columns a group
+        width, ldb = hi.shape
+        return hi.view(width, ldb // 64, 64).permute(1, 0, 2).contiguous()
+    width, ldb = hi.shape
+    parts = torch.stack((hi, lo)).view(2, width, ldb // 32, 32)
+    return parts.permute(0, 2, 1, 3).contiguous()
+
+
 def _launch(kernel, points, signal, outs, *, n_ok, m_eff, kernel_id, diag,
             shift, splits, bf16, ldb, nc, eblocks):
     """Check the staged operands and launch one kernel on them.
@@ -438,7 +508,7 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
                        precision: str = "float32",
                        deferred: bool = False,
                        row_offset=0, col_offset=0, col_limit=INT32_MAX,
-                       row_limit=INT32_MAX):
+                       row_limit=INT32_MAX, fixed_source: bool = False):
     """The product on the hand-written CUDA kernels (see module docstring).
 
     x (N, D), y (M, D) and b (M, E) or None are float32 tensors on one CUDA
@@ -446,7 +516,9 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     points, pads D, computes the norms of the large-D form, folds the
     limits into counts, stages the signal (padded to 1, 2, 4 or 8 columns,
     or for E > 8 as `stage_wide_signal` does), launches one kernel and
-    merges the partial states of column splits.
+    merges the partial states of column splits.  `fixed_source`: the
+    caller keeps `y` unchanged between calls (an engine's source points),
+    so its staging is kept and reused (`_staged_source`).
     """
     spec = get_kernel(kernel_name)
     _check_precision(precision)
@@ -475,9 +547,28 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     bf16 = precision == "bfloat16"
     large = d > 8
 
-    stage = dict(large=large, bf16=bf16)
-    xp = _stage_points(x, spec.point_scale, **stage)
-    yp = _stage_points(y, spec.point_scale, **stage)
+    row_offset = _as_int32("row_offset", row_offset)
+    col_offset = _as_int32("col_offset", col_offset)
+    n_ok = max(0, min(n, int(row_limit) - row_offset))
+    m_eff = max(0, min(m, int(col_limit) - col_offset))
+    shift = _as_int32("row_offset - col_offset", row_offset - col_offset)
+    kernel_id = _CUDA_KERNEL_ID[spec.name]
+    nc, eblocks = signal_plan(e, large, bf16)
+    # The large-D wide kernel's float32 tiers take y as TF32 planes.
+    planes = m_eff if nc > 8 and large and not bf16 else None
+
+    def stage_y():
+        points, norms = _stage_points(y, spec.point_scale, large=large,
+                                      bf16=bf16)
+        return (points, norms,
+                None if planes is None else tf32_planes(points, planes))
+
+    y_points, y_norms, y_planes = (
+        _staged_source(y, (spec.point_scale, large, bf16, planes), stage_y)
+        if fixed_source else stage_y())
+    xp = ((y_points, y_norms) if x is y else
+          _stage_points(x, spec.point_scale, large=large, bf16=bf16))
+    yp = (y_points if y_planes is None else y_planes, y_norms)
     if spec.on == "dot":   # no norms in a dot-product form
         xp, yp = (xp[0], None), (yp[0], None)
     bs = b.float()
@@ -485,20 +576,13 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
         bs = bs.to(torch.bfloat16).float()
     dp = xp[0].shape[1]   # padded coordinates
 
-    row_offset = _as_int32("row_offset", row_offset)
-    col_offset = _as_int32("col_offset", col_offset)
-    n_ok = max(0, min(n, int(row_limit) - row_offset))
-    m_eff = max(0, min(m, int(col_limit) - col_offset))
-    shift = _as_int32("row_offset - col_offset", row_offset - col_offset)
-    kernel_id = _CUDA_KERNEL_ID[spec.name]
-
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    nc, eblocks = signal_plan(e, large)
     if nc > 8 and large:
-        hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16)
-        signal = (hi, lo)
+        hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
+                                        align=TMA_SIGNAL_ALIGN)
+        signal = (tma_signal(hi, lo), None)
     elif nc > 8:
         hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
                                         align=WIDE_TILE)
@@ -541,15 +625,19 @@ def kernel_matvec(x, y, b, **kwargs):
 
     Takes and ignores kmb_tpu's TPU-only arguments (interpret, block_m,
     rows_aligned, cols_aligned); `block_n` sizes the plain version's row
-    blocks and is ignored by the kernels, which choose their own tiles.
+    blocks and is ignored by the kernels, which choose their own tiles;
+    `fixed_source` only keeps the kernels' staging of y
+    (`kernel_matvec_cuda`).
     """
+    fixed_source = kwargs.pop("fixed_source", False)
     kwargs.pop("interpret", None)
     kwargs.pop("block_m", None)
     kwargs.pop("rows_aligned", None)
     kwargs.pop("cols_aligned", None)
     block_n = kwargs.pop("block_n", None)
     if isinstance(x, torch.Tensor) and x.is_cuda:
-        return kernel_matvec_cuda(x, y, b, **kwargs)
+        return kernel_matvec_cuda(x, y, b, fixed_source=fixed_source,
+                                  **kwargs)
     if block_n is not None:
         kwargs["block_n"] = block_n
     return kernel_matvec_torch(x, y, b, **kwargs)

@@ -8,9 +8,10 @@ with the card and no JAX, without the JAX-importing conftest:
 
 Each kernel is held against the plain PyTorch version on the same card and
 inputs: 1e-4 of the largest output in the f32 tiers (different summation
-orders; the large-D form is 3xTF32), 2e-2 in the bfloat16 tier (the kernel
-rounds each flash weight against the running max, the plain version
-against the final max), 1e-3 for logits above 100 (tests/test_ops.py:82).
+orders; the large-D form is 3xTF32), 2e-2 in the bfloat16 tier (the
+small-D kernels round each flash weight against the running max, the
+plain version against the row's max; the large-D kernels take the row's
+max in a first pass), 1e-3 for logits above 100 (tests/test_ops.py:82).
 The solvers on the kernel are held against the same solve on the plain
 version on the card: iteration counts within 5% (at least 2; the plain
 version's own spread over orderings on the ill-conditioned cases named at
@@ -26,7 +27,8 @@ import torch
 
 from kmb_tpu_torch.ops import _build
 from kmb_tpu_torch.ops import solve
-from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+from kmb_tpu_torch.ops.product import (kernel_matvec, kernel_matvec_torch,
+                                       signal_plan)
 
 ALL_KERNELS = ["gaussian", "absolute-exponential", "inverse-distance",
                "exponential"]
@@ -90,43 +92,68 @@ def test_signal_widths_match_plain_version(e, d, normalize, cuda_points):
     _close(kernel_matvec(x, y, b, **kw), kernel_matvec_torch(x, y, b, **kw))
 
 
+WIDE_E = [9, 16, 17, 32, 64, 100, 256, 512]
+WIDE_D = [3, 8, 9, 37, 64, 256, 784]
+
+
+def _launched_once(kernel, e, d, tier, before):
+    # One launch of the wide mode, with the E blocks signal_plan gives.
+    blocks = signal_plan(e, d > 8, tier == "bfloat16")[1]
+    assert (kernel.launches - before[0], kernel.wide_launches - before[1],
+            kernel.wide_eblocks - before[2]) == (1, 1, blocks)
+
+
+def _counts(kernel):
+    return kernel.launches, kernel.wide_launches, kernel.wide_eblocks
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["float32", "float32x3", "bfloat16"])
-@pytest.mark.parametrize("e", [9, 16, 64, 256, 512])
-@pytest.mark.parametrize("d", [3, 8, 64])
+@pytest.mark.parametrize("e", WIDE_E)
+@pytest.mark.parametrize("d", WIDE_D)
 @pytest.mark.parametrize("normalize", [False, True])
 def test_wide_signals_match_plain_version(tier, e, d, normalize,
                                           cuda_points):
     # The wide mode (E > 8): one launch, the signal products on the tensor
-    # cores.  Gaussian: the flash kernel when normalised.
+    # cores.  Gaussian: the flash kernel when normalised.  N and M ragged
+    # against the tiles of 128.
     x, y, b = cuda_points(301, 1203, d, e)
     kw = dict(kernel_name="gaussian", normalize_rows=normalize,
               precision=tier)
     kernel = _build.FLASH if normalize else _build.DIRECT
-    before, wide = kernel.launches, kernel.wide_launches
+    before = _counts(kernel)
     got = kernel_matvec(x, y, b, **kw)
-    assert (kernel.launches - before, kernel.wide_launches - wide) == (1, 1)
+    _launched_once(kernel, e, d, tier, before)
     _close(got, kernel_matvec_torch(x, y, b, **kw), TOL[tier])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["float32", "float32x3", "bfloat16"])
 @pytest.mark.parametrize("kernel", ALL_KERNELS)
-@pytest.mark.parametrize("d", [3, 130])
-def test_wide_signals_with_limits_and_deferred_states(kernel, d,
+@pytest.mark.parametrize("d", [3, 9, 37, 64, 130, 256, 784])
+@pytest.mark.parametrize("e", [17, 40, 64])
+def test_wide_signals_with_limits_and_deferred_states(tier, kernel, d, e,
                                                       cuda_points):
-    x, y, b = cuda_points(517, 1203, d, 40)
+    # Limits ending inside a tile of 128, the diagonal through both tile
+    # kinds, deferred states; one launch with signal_plan's E blocks.
+    x, y, b = cuda_points(517, 1203, d, e)
     for normalize in (False, True):
         kw = dict(kernel_name=kernel, normalize_rows=normalize,
                   deferred=True, row_offset=40, col_offset=3,
-                  row_limit=40 + 200, col_limit=3 + 700, mask_diagonal=True)
-        for g, w in zip(kernel_matvec(x, y, b, **kw),
-                        kernel_matvec_torch(x, y, b, **kw)):
+                  row_limit=40 + 200, col_limit=3 + 700, mask_diagonal=True,
+                  precision=tier)
+        which = (_build.FLASH if normalize and kernel != "inverse-distance"
+                 else _build.DIRECT)
+        before = _counts(which)
+        got = kernel_matvec(x, y, b, **kw)
+        _launched_once(which, e, d, tier, before)
+        for g, w in zip(got, kernel_matvec_torch(x, y, b, **kw)):
             if w is None:
                 assert g is None
                 continue
             masked = w.abs() >= 1e29
             assert torch.equal(g.abs() >= 1e29, masked)
-            _close(g[~masked], w[~masked])
+            _close(g[~masked], w[~masked], TOL[tier])
 
 
 @pytest.mark.cuda
@@ -218,24 +245,33 @@ def test_large_d_form_at_the_diagonal_of_equal_points(mode, cuda_points):
     _close(got, kernel_matvec_torch(y, y, b, **kw))
 
 
+# (D, E) of the bf16 flash draws: the narrow large-D kernel (E = 1), the
+# large-D wide kernel (E = 16 and 64, at D = 784 and 64), and the small-D
+# kernels, narrow and wide (D = 3 and 8).
+FLASH_DRAWS = [(784, 1), (784, 16), (784, 64), (64, 16), (64, 64), (3, 1),
+               (8, 1), (3, 16), (8, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["gaussian", "absolute-exponential",
                                     "exponential"])
-def test_bf16_large_d_flash_over_draws(kernel, cuda_points):
-    # N = 300, M = 411, D = 784, E = 1, normalised, bfloat16: on draws whose
-    # outputs cancel (the largest output near 0.01) a weight rounded to
-    # bf16 against a running max and against the row's max differ by 2-4%
-    # of the largest output, though both are as far from float64.  The
-    # kernel's first pass takes the row's max, so each draw is held to the
-    # plain version at the bfloat16 limit.
+@pytest.mark.parametrize("d, e", FLASH_DRAWS)
+def test_bf16_large_d_flash_over_draws(kernel, d, e, cuda_points):
+    # N = 300, M = 411, normalised, bfloat16: on draws whose outputs cancel
+    # (at D = 784 the largest output near 0.01) a weight rounded to bf16
+    # against a running max and against the row's max differ by 2-4% of
+    # the largest output, though both are as far from float64.  The large-D
+    # kernels' first pass takes the row's max, so each draw is held to the
+    # plain version at the bfloat16 limit; the same draws run through every
+    # bf16 flash kernel.
     for seed in range(8):
-        x, y, b = cuda_points(300, 411, 784, 1, seed=100 + seed)
+        x, y, b = cuda_points(300, 411, d, e, seed=100 + seed)
         kw = dict(kernel_name=kernel, normalize_rows=True)
         got = kernel_matvec(x, y, b, precision="bfloat16", **kw)
         want = kernel_matvec_torch(x, y, b, precision="bfloat16", **kw)
         exact = kernel_matvec_torch(x.double(), y.double(), b.double(), **kw)
         scale = float(exact.abs().max())
-        print(f"{kernel} draw {seed}: kernel vs float64 "
+        print(f"{kernel} D={d} E={e} draw {seed}: kernel vs float64 "
               f"{float((got.double() - exact).abs().max()) / scale:.3e}, "
               f"plain vs float64 "
               f"{float((want.double() - exact).abs().max()) / scale:.3e}")
@@ -274,6 +310,125 @@ def test_profiler_hook_after_many_launches(tmp_path, monkeypatch):
         events = json.load(f)["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("small_d_kernel" in name for name in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_launch_timer_after_the_profiler_suspects(tmp_path, monkeypatch,
+                                                  cuda_points):
+    # The history the profiler's lost records were traced to in long
+    # processes: cuSOLVER and a float64 eigh, the float64 plain product,
+    # 60 CUDA-only profiler sessions.  Then the runner's hook still traces
+    # the query's kernel, and the launch timer (CUDA events around each
+    # launch, which replaced the profiler for the kernel-alone times) reads
+    # one time per launch, each no longer than the call that made it.
+    import json
+    import os
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmb_tpu_torch.datasets import make_arrays
+    from kmb_tpu_torch.definitions import Definition
+    from kmb_tpu_torch.runner import TRACE_FILE, run_on_arrays
+
+    a = torch.randn((2000, 2000), device="cuda")
+    lu, piv = torch.linalg.lu_factor(a @ a.T + 2000 * torch.eye(
+        2000, device="cuda"))
+    torch.linalg.lu_solve(lu, piv, torch.ones((2000, 1), device="cuda"))
+    s = torch.randn((256, 256), device="cuda", dtype=torch.float64)
+    torch.linalg.eigh(s @ s.T)
+    x, y, b = cuda_points(3000, 3000, 3, 1)
+    kernel_matvec_torch(x.double(), y.double(), b.double(),
+                        kernel_name="gaussian")
+    for _ in range(60):
+        with profile(activities=[ProfilerActivity.CUDA]):
+            kernel_matvec(x, y, b, kernel_name="gaussian")
+            torch.cuda.synchronize()
+
+    arrays = make_arrays("product-cube-D3-E1-M1000-N1000-gaussian")
+    arrays["target_signal"] = arrays["source_signal"]   # any truth
+    monkeypatch.setenv("KMB_PROFILE_DIR", str(tmp_path))
+    definition = Definition(
+        algorithm="torch-product",
+        module="kmb_tpu_torch.algorithms.torch_engine",
+        constructor="TorchProduct",
+        arguments={"kernel": "gaussian", "dimension": 3},
+        query_argument_groups=[{}])
+    (row,) = run_on_arrays(definition, arrays, runs=1)
+    with open(os.path.join(row.attrs["profile_trace"], TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("small_d_kernel" in e["name"] for e in events
+               if e.get("cat") == "kernel")
+
+    x, y, b = cuda_points(20000, 20000, 3, 1)
+    kernel_matvec(x, y, b, kernel_name="gaussian")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        with _build.launch_timer() as times:
+            kernel_matvec(x, y, b, kernel_name="gaussian")
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - started) * 1e3
+        assert len(times) == 1
+        assert 0.0 < times[0] <= call_ms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [3, 256])
+def test_fixed_source_staging_follows_the_points(tier, d, cuda_points):
+    # An engine's source points staged once (`fixed_source`): repeated
+    # calls, and a call after the points changed in place, match the plain
+    # version on the points as they are.
+    x, y, b = cuda_points(200, 700, d, 40)
+    kw = dict(kernel_name="gaussian", precision=tier)
+    for _ in range(2):
+        _close(kernel_matvec(x, y, b, fixed_source=True, **kw),
+               kernel_matvec_torch(x, y, b, **kw), TOL[tier])
+    y.mul_(1.25)
+    _close(kernel_matvec(x, y, b, fixed_source=True, **kw),
+           kernel_matvec_torch(x, y, b, **kw), TOL[tier])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_large_d_wide_blocks_are_the_librarys(bf16, cuda_points):
+    # The wrapper's E blocks at D > 8 (signal_plan) are the ones the
+    # library has instantiations of, and no others.
+    from kmb_tpu_torch.ops.product import _WIDE_BLOCKS_LARGE_D
+
+    cuda_points(1, 1, 1, 1)   # skips without a card
+    for eb in (16, 32, 64, 128):
+        if eb in _WIDE_BLOCKS_LARGE_D[bf16]:
+            _build.plan(64, eb, 0, False, False, bf16)
+        else:
+            with pytest.raises(RuntimeError, match="kmb_plan failed"):
+                _build.plan(64, eb, 0, False, False, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["float32", "bfloat16"])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_wide_launch_reports_its_staging(tier, normalize, cuda_points):
+    # The large-D wide kernel reports what its launch staged through TMA:
+    # a ring of 4 to 8 stages, x resident in bf16 at D = 256, and at least
+    # y's bytes once per row block (its TF32 planes in the float32 tiers);
+    # the narrow kernels stage nothing through TMA.
+    n, m, d = 300, 1000, 256
+    x, y, b = cuda_points(n, m, d, 40)
+    kw = dict(kernel_name="exponential", normalize_rows=normalize,
+              precision=tier)
+    kernel = _build.FLASH if normalize else _build.DIRECT
+    before = kernel.staged_bytes
+    kernel_matvec(x, y, b, **kw)
+    stages, resident, staged = kernel.last_staging
+    assert 4 <= stages <= 8
+    assert resident == (tier == "bfloat16")
+    assert kernel.staged_bytes - before == staged
+    row_blocks = -(-n // 128)
+    assert staged >= row_blocks * m * d * (2 if tier == "bfloat16" else 8)
+    kernel_matvec(x, y, b[:, :8], **kw)
+    assert kernel.last_staging == (0, 0, 0)
 
 
 @pytest.mark.cuda

@@ -305,6 +305,9 @@ def test_cuda_kernel_counts_only_accepted_launches(monkeypatch):
         def kmb_fake(self, *args):
             return self.code
 
+        def kmb_last_staging(self, stages, resident, staged):
+            pass   # zeros: a kernel that stages nothing through TMA
+
         def kmb_error_string(self, code):
             return b"invalid argument"
 
@@ -321,9 +324,17 @@ def test_cuda_kernel_counts_only_accepted_launches(monkeypatch):
 
 
 def test_cuda_kernel_counts_wide_launches_and_e_blocks(monkeypatch):
+    # ... and the bytes the library reports each launch staged through TMA
+    # (the large-D wide kernel: stages, x resident, bytes).
+    staging = iter([(0, 0, 0), (6, 1, 1000), (4, 0, 24)])
+
     class FakeLibrary:
         def kmb_fake(self, *args):
             return 0
+
+        def kmb_last_staging(self, stages, resident, staged):
+            (stages._obj.value, resident._obj.value,
+             staged._obj.value) = next(staging)
 
     monkeypatch.setattr(_build, "load_library", FakeLibrary)
     kernel = _build.CudaKernel("kmb_fake")
@@ -332,7 +343,10 @@ def test_cuda_kernel_counts_wide_launches_and_e_blocks(monkeypatch):
     kernel(3, eblocks=2)      # two E blocks (E = 512)
     assert (kernel.launches, kernel.wide_launches,
             kernel.wide_eblocks) == (3, 2, 3)
+    assert kernel.staged_bytes == 1024
+    assert kernel.last_staging == (4, 0, 24)
     monkeypatch.setattr(_build, "KERNELS", (kernel,))
     _build.reset_launch_counts()
     assert (kernel.launches, kernel.wide_launches,
             kernel.wide_eblocks) == (0, 0, 0)
+    assert (kernel.staged_bytes, kernel.last_staging) == (0, (0, 0, 0))

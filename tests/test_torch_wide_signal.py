@@ -44,8 +44,8 @@ from kmb_tpu_torch.ops import product
 from kmb_tpu_torch.ops.product import (
     FLASH_NEG_INF, INT32_MAX, WIDE_TF32_ORDER, WIDE_TILE, _finalize_direct,
     _needs_den, kernel_matvec_torch, merge_direct_states,
-    merge_flash_states, signal_plan, stage_wide_signal, tf32_split,
-    tile_wide_signal)
+    TMA_SIGNAL_ALIGN, merge_flash_states, signal_plan, stage_wide_signal,
+    tf32_planes, tf32_split, tile_wide_signal, tma_signal)
 
 ALL_KERNELS = ["gaussian", "absolute-exponential", "inverse-distance",
                "exponential"]
@@ -53,7 +53,7 @@ TIERS = ["float32", "float32x3", "bfloat16"]
 WIDTHS = [9, 16, 64, 256]
 
 # Source columns per tile of the two forms (csrc/small_d_wide.cuh kTile,
-# csrc/large_d.cuh kCols), and per group of tiles (csrc/wide.cuh
+# csrc/large_d_wide.cuh kCols), and per group of tiles (csrc/wide.cuh
 # kGroupColumns).
 TILE = {False: 32, True: 128}
 GROUP_COLUMNS = 2048
@@ -131,7 +131,7 @@ def emulate(x, y, b, kernel_name, *, normalize_rows=False,
                            b_was_none)
     bf16 = precision == "bfloat16"
     large = d > 8
-    nc, eblocks = signal_plan(e, large)
+    nc, eblocks = signal_plan(e, large, bf16)
     assert nc > 8, "a narrow signal"
     bs = _bf16(b.float()) if bf16 else b.float()
     hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16)
@@ -265,15 +265,28 @@ def _hold(got, want, tier, normalize):
     (9, False, (16, 1)), (16, False, (16, 1)), (17, False, (64, 1)),
     (33, False, (64, 1)), (64, False, (64, 1)), (100, False, (256, 1)),
     (256, False, (256, 1)), (512, False, (256, 2)), (9, True, (16, 1)),
-    (16, True, (16, 1)), (100, True, (16, 7)), (512, True, (16, 32))])
+    (16, True, (16, 1)), (100, True, (32, 4)), (512, True, (32, 16))])
 def test_signal_plan(e, large, want):
     # One launch at any width: E blocks along the grid, never more
     # columns than the blocks hold, and less than one block of padding;
     # at D <= 8 one block up to E = 256, so each kernel value is computed
-    # once per launch.
+    # once per launch; at D > 8 (float32 tiers) blocks of 16 or 32.
     nc, blocks = signal_plan(e, large)
     assert (nc, blocks) == want
     assert nc * blocks >= e > nc * (blocks - 1)
+
+
+@pytest.mark.parametrize("e, bf16, want", [
+    (9, False, (16, 1)), (17, False, (32, 1)), (32, False, (32, 1)),
+    (33, False, (32, 2)), (64, False, (32, 2)), (9, True, (16, 1)),
+    (17, True, (32, 1)), (33, True, (64, 1)), (64, True, (64, 1)),
+    (100, True, (64, 2)), (512, True, (64, 8))])
+def test_signal_plan_at_large_d_by_tier(e, bf16, want):
+    # At D > 8 the narrowest block of the tier that holds E, else its
+    # widest: 16 or 32 columns in the float32 tiers, 16, 32 or 64 in
+    # bfloat16 (csrc/large_d_wide.cuh, supported_eb); one E block up to
+    # E = 32 (float32) or 64 (bfloat16).
+    assert signal_plan(e, True, bf16) == want
 
 
 @pytest.mark.parametrize("tier", TIERS)
@@ -335,6 +348,108 @@ def test_tiled_signal_is_the_shared_layout(bf16, eb, blocks):
                            part.flatten().sort().values)
 
 
+@pytest.mark.parametrize("m, d, rows", [(300, 37, 300), (300, 256, 297),
+                                        (131, 9, 0)])
+def test_tf32_planes_of_the_source_points(m, d, rows):
+    # The large-D wide kernel's float32-tier points: the first `rows`
+    # staged rows (rows of whole 16 bytes, for the tensor maps) as two
+    # contiguous planes, hi then lo, which are tf32_split's parts exactly
+    # and add up to the f32 values within 2^-22.
+    _, pts, _ = _points(1, m, d, 1, seed=d)
+    staged, norms = product._stage_points(torch.from_numpy(pts), 1.7,
+                                          large=True, bf16=False)
+    assert staged.shape[1] % 4 == 0 and staged.shape[1] >= d
+    planes = tf32_planes(staged, rows)
+    assert planes.shape == (2, rows, staged.shape[1])
+    assert planes.is_contiguous() and planes.dtype == torch.float32
+    assert planes.stride(1) * planes.element_size() % 16 == 0
+    hi, lo = tf32_split(staged[:rows])
+    assert torch.equal(planes[0], hi) and torch.equal(planes[1], lo)
+    ref = staged[:rows].double()
+    assert torch.all((planes[0].double() + planes[1].double() - ref).abs()
+                     <= 2.0 ** -22 * ref.abs())
+
+
+def test_staged_source_is_reused_until_the_points_change():
+    # The wrapper stages an engine's fixed source points once: the same
+    # tensor at the same version and key gets the same staged operands;
+    # an in-place change, another key or another tensor is staged anew;
+    # the entry goes with its tensor; inference tensors (no version
+    # counter) are staged every call.
+    import gc
+
+    staged = []
+
+    def stage(t):
+        def run():
+            staged.append(t.shape)
+            return product._stage_points(t, 1.0, large=True, bf16=False)
+        return run
+
+    _, pts, _ = _points(1, 40, 12, 1, seed=3)
+    y = torch.from_numpy(pts)
+    first = product._staged_source(y, "key", stage(y))
+    assert product._staged_source(y, "key", stage(y)) is first
+    assert len(staged) == 1
+    product._staged_source(y, "other key", stage(y))
+    assert len(staged) == 2
+    y.mul_(2.0)
+    doubled = product._staged_source(y, "other key", stage(y))
+    assert len(staged) == 3
+    assert torch.equal(doubled[0][:, :12], y.float())
+    z = y.clone()
+    product._staged_source(z, "other key", stage(z))
+    assert len(staged) == 4
+    del z
+    gc.collect()
+    assert product._source_cache[0] is None
+    with torch.inference_mode():
+        w = torch.ones((8, 12))
+    product._staged_source(w, "key", stage(w))
+    product._staged_source(w, "key", stage(w))
+    assert len(staged) == 6
+
+
+def test_fixed_source_changes_nothing_on_the_cpu():
+    # `fixed_source` only keeps the kernels' staging of y; the plain
+    # version takes and ignores it.
+    x, y, b = (torch.from_numpy(a) for a in _points(30, 40, 12, 20, seed=4))
+    kw = dict(kernel_name="gaussian", precision="float32")
+    assert torch.equal(product.kernel_matvec(x, y, b, fixed_source=True, **kw),
+                       product.kernel_matvec(x, y, b, **kw))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m, e, width", [(300, 17, 32), (64, 64, 64),
+                                         (129, 100, 128)])
+def test_tma_signal_groups(bf16, m, e, width):
+    # The large-D wide kernel's signal: padded to whole groups of 128 bytes
+    # of source columns (64 in both tiers), each group of every signal
+    # column contiguous, the TF32 lo part after the hi part; every staged
+    # value lands once, where the kernel's TMA box reads it.
+    b = torch.from_numpy(_points(1, m, 1, e, seed=e)[2])
+    if bf16:
+        b = _bf16(b)
+    hi, lo, ldb = stage_wide_signal(b, width, bf16, align=TMA_SIGNAL_ALIGN)
+    assert ldb % 64 == 0 and ldb >= m
+    grouped = tma_signal(hi, lo)
+    assert grouped.is_contiguous()
+    if bf16:
+        assert grouped.shape == (ldb // 64, width, 64)
+        assert grouped.dtype == torch.bfloat16
+        for g, n, c in ((0, 0, 0), (ldb // 64 - 1, width - 1, 63), (0, 5, 17)):
+            assert grouped[g, n, c] == hi[n, 64 * g + c]
+    else:
+        assert grouped.shape == (2, ldb // 32, width, 32)
+        for p, part in enumerate((hi, lo)):
+            for g, n, c in ((0, 0, 0), (ldb // 32 - 1, width - 1, 31),
+                            (1, 3, 9)):
+                assert grouped[p, g, n, c] == part[n, 32 * g + c]
+    flat = grouped.float().flatten().sort().values
+    parts = hi if lo is None else torch.stack((hi, lo))
+    assert torch.equal(flat, parts.float().flatten().sort().values)
+
+
 def test_order_index_is_built_once_per_device():
     # The float32 tiers' gather index (WIDE_TF32_ORDER) is built on the
     # signal's device once per power-of-two length and reused, not copied
@@ -373,10 +488,12 @@ def test_wide_arithmetic_matches_jax(tier, kernel, e, normalize):
 
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("kernel", ALL_KERNELS)
-@pytest.mark.parametrize("d, e", [(5, 40), (37, 16), (130, 100)])
+@pytest.mark.parametrize("d, e", [(5, 40), (37, 16), (130, 100), (64, 64),
+                                  (256, 33)])
 def test_wide_arithmetic_at_other_widths(tier, kernel, d, e):
     # D = 5 pads to 8 coordinates; D > 8 forms on the tensor cores (tiles
-    # of 128 columns, E blocks of 16).
+    # of 128 columns, E blocks of 16 or 32, and 64 in bfloat16: E = 64 is
+    # one block there, two in the float32 tiers; E = 33 a ragged block).
     x, y, b = _points(160, 333, d, e, seed=d)
     for normalize in (False, True):
         kw = dict(kernel_name=kernel, normalize_rows=normalize,
