@@ -94,7 +94,11 @@ Phases, each of which must pass:
    chunks and fold for four virtual ranks, the all-pairs blocks on a
    virtual 2 x 2 grid, against the single-card product and the float64
    truth; and the ring chunk's kernel shapes at p = 4 against the plain
-   version, timed.
+   version, timed.  Last, the communication model of kmb_tpu_torch.comm:
+   the ring's and all-pairs' collectives recorded in a gloo world of four
+   CPU ranks and held to its formula, which is scaled to the cube and to
+   2^20 at this card's rate (the single-card TorchProduct float32 query on
+   the cube) and NVLink's data-sheet rate, its rows printed.
 8. Four cards (when the machine has them; otherwise a line says it was not
    run): four NCCL ranks, one process per card, run the ring and the 2 x 2
    all-pairs product on the cube, the sphere and attention and
@@ -103,7 +107,11 @@ Phases, each of which must pass:
    held against the same truths and limits; each query's time is printed
    beside the single-card time of phase 7, the scaling efficiency
    (single-card time / (4 x sharded time)) and, for the ring, the sum of
-   its chunk kernels' times (CUDA events, the slowest rank's).
+   its chunk kernels' times (CUDA events, the slowest rank's).  One ring
+   and one all-pairs query on the cube run with the mesh's collectives
+   recorded (parallel.sharded.record_collectives): every rank's counts
+   and bytes must equal kmb_tpu_torch.comm's formula, and the model's
+   efficiency is printed beside the measured one.
 9. The harness around the engines on one card, in a process of its own
    (torch.profiler's CUDA records went missing in this process after
    phase 5 in earlier runs; here the hook is first tried once in it, and
@@ -118,20 +126,35 @@ Phases, each of which must pass:
    `run_on_arrays` on three 10^4-point datasets against the float64 plain
    product on the card; and `kmb_tpu_torch.scaling.measure` at p = 1 on
    2^20 points (1.1e12 pairs) against a float64 plain product on a subset
-   of the target rows, with that shape's kernel call held against the
-   plain version and timed.
+   of the target rows (phase 11 times that kernel shape).
 10. The device-count sweep on four cards (with phase 8's per-card
    processes; otherwise a line says it was not run): `scaling.measure`
    over meshes of 1, 2 and 4 cards at 131072^2 and 2^20, each answer held
    against the single card's, printed beside phase 8's ring efficiency.
+11. The 2^20-point datasets through the CLI, in a temporary data and
+   results directory: `python -m kmb_tpu_torch --dataset NAME --algorithm
+   torch-product --runs 2` in a subprocess for the Gaussian cube at
+   2^20 x 2^20 (D3) and exponential attention at D25 (2^20 sources, 10^4
+   targets), each computing its float64 truth over every row on the card
+   (its seconds and peak allocated memory, under 16 GiB, from the CLI's
+   log), then each tier's query in a child process.  Each stored result's
+   error over all rows is held under phase 3's bounds; each tier's
+   launches come from the children's log.  Then each kernel at those
+   shapes in this process: the call held to the plain version on its
+   first 4096 rows, timed with its kernel alone, one plain call (float32x3
+   shares float32's: the plain version's code is the same), the bound and
+   (attention) the library's memory-efficient attention.  Last, `python
+   -m kmb_tpu_torch.smoke --hardware GPU` with its test step skipped
+   (JAX and minutes), and its plot and website steps where matplotlib is
+   missing.
 
 The last line is {"ok": true, "device": {...}} and is printed only when
 every phase passed; the line before it holds the kernels' numbers, one
 entry per kernel, dataset and tier, and the lines before that the sharded
 runs', the solver runs' and the approximate runs'.  Nothing is written
-outside the git-ignored kernel build directory and the system's temporary
-directory (phase 8's rank reports and phase 9's traces, removed at the
-end).
+outside the git-ignored kernel build directories and the system's
+temporary directory (phase 8's rank reports, phase 9's traces, phase 11's
+datasets and results, removed at the end).
 """
 
 from __future__ import annotations
@@ -358,6 +381,15 @@ SWEEP_COUNTS = (1, 2, 4)
 SWEEP_RUNS = 3
 SWEEP_TOL = 1e-4
 SWEEP_CHECK_ROWS = 4096
+# Phase 11: the 2^20-point datasets through `python -m kmb_tpu_torch`
+# (the algos.yaml entry `torch-product`: three tiers), each with its
+# float64 truth over every row, computed by the CLI on the card.
+CLI_DATASETS = ("product-cube-D3-E1-M1048576-N1048576-gaussian",
+                "attention-normal-D25-E1-M1048576-N10000-exponential")
+CLI_ALGORITHM = "torch-product"
+CLI_TIMEOUT = 900           # seconds for one CLI run, truth included
+TRUTH_PEAK_BYTES = 16 * 2**30   # device memory the truth may hold
+SMOKE_TIMEOUT = 600         # seconds for `python -m kmb_tpu_torch.smoke`
 PHASE9_TIMEOUT = 900   # seconds for phase 9's process, start to report
 HOOK_PRIOR_LAUNCHES = 100_000   # launches before phase 9's hook, its process
 HOOK_DATASET = "product-cube-D3-E1-M1000-N1000-gaussian"
@@ -648,9 +680,9 @@ def selected_phases(spec):
     """The phases to run: phase 1 always; 4 brings 3 (its launch counts),
     10 brings 8 (its processes), 8 brings 7 (its single-card baselines)."""
     if spec == "all":
-        return set(range(1, 11))
+        return set(range(1, 12))
     phases = {int(p) for p in spec.split(",")} | {1}
-    check(phases <= set(range(1, 11)), f"no such phase in {spec!r}")
+    check(phases <= set(range(1, 12)), f"no such phase in {spec!r}")
     if 4 in phases:
         phases.add(3)
     if 10 in phases:
@@ -726,7 +758,7 @@ def main(argv=None):
     print(f"phases {sorted(phases)} [{card}]")
 
     entries, datasets, per_run = [], {}, {}
-    solvers = approx = sharded = four = harness = wide_shapes = None
+    solvers = approx = sharded = four = harness = wide_shapes = cli = None
     if 2 in phases:
         wide_shapes = kernels_vs_plain(dev, card, sfu_rate)
     if 3 in phases:
@@ -747,15 +779,18 @@ def main(argv=None):
     if 8 in phases:
         four = four_cards(card, single_card, sweep=10 in phases)
     if 9 in phases:
-        harness = harness_phase(card, entries)
+        harness = harness_phase(card)
+    if 11 in phases:
+        torch.cuda.empty_cache()   # the card's memory, for the CLI's
+        cli = cli_path(card, sfu_rate, entries)
 
-    if phases & {4, 7}:
+    if phases & {4, 7, 11}:
         check({entry["name"] for entry in entries} == {"direct", "flash"},
               "a kernel was not timed")
     for key, records in (("wide_e512", wide_shapes), ("approx", approx),
                          ("solvers", solvers),
                          ("sharded", sharded), ("four_cards", four),
-                         ("harness", harness)):
+                         ("harness", harness), ("cli", cli)):
         if records is not None:
             print(json.dumps({key: records}))
     print(card)
@@ -1421,8 +1456,8 @@ def approx_path(dev, card, sfu_rate, entries, time_ms, datasets):
     torch_approx.BlrOperator = spy_operator
     torch_approx.BlrSolver.query = counted_query
     try:
-        for (label, name, constructor, args, query, held, limit,
-             record) in APPROX_PATH:
+        for members in shared_builds(APPROX_PATH):
+            _, name, constructor, args = members[0][:4]
             arrays = datasets[name]
             definition = Definition(
                 algorithm=f"torch-{constructor}",
@@ -1432,76 +1467,88 @@ def approx_path(dev, card, sfu_rate, entries, time_ms, datasets):
                            "dimension": arrays["source_points"].shape[1],
                            "normalize_rows": bool(arrays["normalize_rows"]),
                            **args},
-                query_argument_groups=[query])
+                query_argument_groups=[member[4] for member in members])
             built.clear()
             query_launches.clear()
-            (row,) = run_on_arrays(definition, arrays, runs=2)
-            attrs = row.attrs
-            solver = constructor in ("NystromSolver", "BlrSolver")
-            truth = arrays["source_signal" if solver else "target_signal"]
-            check(np.all(np.isfinite(row.result))
-                  and row.result.shape == truth.shape,
-                  f"{label}: result not finite or misshapen")
-            entry = dict(label=label, dataset=name, args=args, query=query,
-                         build_s=attrs["build_time"],
-                         query_s=attrs["query_time"], held=held,
-                         jax_tpu_record=record, card=card)
-            for key in ("compression", "rank", "num_features", "streaming",
-                        "near_pairs", "near_sym_pairs", "far_pairs",
-                        "mean_block_rank", "build_qr_seconds",
-                        "build_eigh_seconds", "cg_iterations",
-                        "ir_outer_iterations", "cg_relative_residual",
-                        "true_relative_residual"):
-                if key in attrs:
-                    entry[key] = attrs[key]
-            if held == "rms":
-                measured = rms_error(row, arrays["target_signal"])
-            elif held == "ridge residual":
-                check(len(built) == 2, f"{label}: {len(built)} builds")
-                c = built[-1].double()
-                b = torch.tensor(row.result, device=dev)
-                a = torch.tensor(arrays["target_signal"], device=dev)
-                lam = query["lam"]
-                measured = float(torch.linalg.norm(lam * b + c @ (c.T @ b)
-                                                   - a)
-                                 / torch.linalg.norm(a))
-                limit = 10 * NYSTROM_JAX_CPU_RIDGE
-                entry["jax_cpu_ridge_residual"] = NYSTROM_JAX_CPU_RIDGE
-                entry["true_residual"] = float64_residual(arrays, row.result)
-            else:
-                measured = float64_residual(arrays, row.result)
-                check(len(query_launches) == 2
-                      and min(query_launches) >= 1,
-                      f"{label}: direct-kernel launches per query "
-                      f"{query_launches}")
-                entry["direct_launches_per_query"] = query_launches[:]
-                if "refine_iters" not in query:
-                    entry.update(blr_matvec_breakdown(
-                        operators[0], attrs, time_ms, dev))
-            check(measured <= limit,
-                  f"{label} on {name}: {held} {measured:.3e} > {limit:.3e}")
-            entry.update(measured=measured, limit=limit)
-            if constructor == "BlrProduct" and "epsilon" not in args:
-                # A fixed rank: the compression follows from the plan.
-                check(round(attrs["compression"], 4) == record["compression"],
-                      f"{label}: compression {attrs['compression']:.6f}, "
-                      f"record {record['compression']}")
-            if args.get("stream_bytes") == 0:
-                check(attrs["streaming"], f"{label}: did not stream")
-                ref = torch.tensor(materialised)
-                diff = float((torch.tensor(row.result) - ref).abs().max()
-                             / ref.abs().max())
-                check(diff <= STREAM_TOL, f"{label}: streamed differs from "
-                      f"materialised by {diff:.3e} > {STREAM_TOL}")
-                entry["streamed_vs_materialised"] = diff
-            elif constructor == "RandomFeatureProduct":
-                materialised = row.result
-            records.append(entry)
-            shown = {k: v for k, v in entry.items()
-                     if k not in ("label", "dataset", "args", "query",
-                                  "card", "held", "measured", "limit")}
-            print(f"phase 6: {label} on {name} {args} {query}: {held} "
-                  f"{measured:.4e} (limit {limit:.3e}), {shown} [{card}]")
+            rows = run_on_arrays(definition, arrays, runs=2)
+            check(not query_launches
+                  or len(query_launches) == 2 * len(members),
+                  f"{members[0][0]}: {len(query_launches)} queries counted "
+                  f"for {len(members)} query groups of two runs")
+            for pos, (member, row) in enumerate(zip(members, rows)):
+                (label, name, constructor, args, query, held, limit,
+                 record) = member
+                # This query group's two repetitions (groups run in turn).
+                launched = query_launches[2 * pos:2 * pos + 2]
+                attrs = row.attrs
+                solver = constructor in ("NystromSolver", "BlrSolver")
+                truth = arrays["source_signal" if solver else "target_signal"]
+                check(np.all(np.isfinite(row.result))
+                      and row.result.shape == truth.shape,
+                      f"{label}: result not finite or misshapen")
+                entry = dict(label=label, dataset=name, args=args, query=query,
+                             build_s=attrs["build_time"],
+                             query_s=attrs["query_time"], held=held,
+                             jax_tpu_record=record, card=card)
+                if len(members) > 1:
+                    # One build served these query groups: build_s is its.
+                    entry["build_shared_with"] = [
+                        other[0] for other in members if other is not member]
+                for key in ("compression", "rank", "num_features", "streaming",
+                            "near_pairs", "near_sym_pairs", "far_pairs",
+                            "mean_block_rank", "build_qr_seconds",
+                            "build_eigh_seconds", "cg_iterations",
+                            "ir_outer_iterations", "cg_relative_residual",
+                            "true_relative_residual"):
+                    if key in attrs:
+                        entry[key] = attrs[key]
+                if held == "rms":
+                    measured = rms_error(row, arrays["target_signal"])
+                elif held == "ridge residual":
+                    check(len(built) == 2, f"{label}: {len(built)} builds")
+                    c = built[-1].double()
+                    b = torch.tensor(row.result, device=dev)
+                    a = torch.tensor(arrays["target_signal"], device=dev)
+                    lam = query["lam"]
+                    measured = float(torch.linalg.norm(lam * b + c @ (c.T @ b)
+                                                       - a)
+                                     / torch.linalg.norm(a))
+                    limit = 10 * NYSTROM_JAX_CPU_RIDGE
+                    entry["jax_cpu_ridge_residual"] = NYSTROM_JAX_CPU_RIDGE
+                    entry["true_residual"] = float64_residual(arrays, row.result)
+                else:
+                    measured = float64_residual(arrays, row.result)
+                    check(len(launched) == 2 and min(launched) >= 1,
+                          f"{label}: direct-kernel launches per query "
+                          f"{launched}")
+                    entry["direct_launches_per_query"] = launched
+                    if "refine_iters" not in query:
+                        entry.update(blr_matvec_breakdown(
+                            operators[0], attrs, time_ms, dev))
+                check(measured <= limit,
+                      f"{label} on {name}: {held} {measured:.3e} > {limit:.3e}")
+                entry.update(measured=measured, limit=limit)
+                if constructor == "BlrProduct" and "epsilon" not in args:
+                    # A fixed rank: the compression follows from the plan.
+                    check(round(attrs["compression"], 4) == record["compression"],
+                          f"{label}: compression {attrs['compression']:.6f}, "
+                          f"record {record['compression']}")
+                if args.get("stream_bytes") == 0:
+                    check(attrs["streaming"], f"{label}: did not stream")
+                    ref = torch.tensor(materialised)
+                    diff = float((torch.tensor(row.result) - ref).abs().max()
+                                 / ref.abs().max())
+                    check(diff <= STREAM_TOL, f"{label}: streamed differs from "
+                          f"materialised by {diff:.3e} > {STREAM_TOL}")
+                    entry["streamed_vs_materialised"] = diff
+                elif constructor == "RandomFeatureProduct":
+                    materialised = row.result
+                records.append(entry)
+                shown = {k: v for k, v in entry.items()
+                         if k not in ("label", "dataset", "args", "query",
+                                      "card", "held", "measured", "limit")}
+                print(f"phase 6: {label} on {name} {args} {query}: {held} "
+                      f"{measured:.4e} (limit {limit:.3e}), {shown} [{card}]")
     finally:
         torch_approx.nystrom_solver_build = real_build
         torch_approx.BlrOperator = real_operator
@@ -1548,6 +1595,19 @@ def approx_path(dev, card, sfu_rate, entries, time_ms, datasets):
         kernel_device_ms=None))
     print(f"phase 6: {time.perf_counter() - started:.1f} s [{card}]")
     return records
+
+
+def shared_builds(entries):
+    """APPROX_PATH's entries in runs of consecutive ones on the same
+    dataset, constructor and arguments: one definition (one build per
+    repetition) with their queries as its query groups."""
+    runs = []
+    for entry in entries:
+        if runs and runs[-1][0][1:4] == entry[1:4]:
+            runs[-1].append(entry)
+        else:
+            runs.append([entry])
+    return runs
 
 
 def blr_matvec_breakdown(op, attrs, time_ms, dev):
@@ -1931,10 +1991,45 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
             kernel_device_ms=device_ms))
         del x, y, b, xs, ys, bs
         torch.cuda.empty_cache()
+    records.append({"comm_model": comm_model(
+        card, len(datasets[PRODUCT_CUBE]["source_points"]),
+        single[PRODUCT_CUBE][1])})
     print(f"phase 7: {time.perf_counter() - started:.1f} s [{card}]")
     single_card = {name: qt for name, (_, qt) in single.items()}
     single_card["pcg"] = pcg
     return records, single_card
+
+
+def comm_model(card, n, query_s):
+    """Phase 7's communication model (kmb_tpu_torch.comm): the collectives
+    of the ring and the all-pairs ShardedProduct recorded in a gloo world
+    of FOUR_CARDS CPU ranks and held to the formula, which is then scaled
+    to N = M = n (the cube) and 2^20 at this card's rate: the single-card
+    TorchProduct float32 query on the n-point cube, `query_s` seconds."""
+    from kmb_tpu_torch import comm
+
+    rate = n * n / query_s
+    with tempfile.TemporaryDirectory() as tmp:
+        comm.verify(FOUR_CARDS, 3, 1,
+                    comm.record_world(FOUR_CARDS, 3, 1, tmp))
+    rows = []
+    for size in (n, SWEEP_N):
+        for schedule in SCHEDULES:
+            row = comm.predict(schedule, FOUR_CARDS, size, 3, 1, rate)
+            rows.append(dict(row, n=size))
+            ops = ", ".join(f"{c['count']} x {c['op']} {c['shape']}"
+                            for c in row["collectives"])
+            print(f"phase 7: comm model, {schedule} on {FOUR_CARDS} ranks at "
+                  f"N = M = {size} (recorded on gloo at {comm.SIZES}, held "
+                  f"to the formula): {ops}; {row['total_bytes_per_device']:.4e}"
+                  f" bytes a card over NVLink at "
+                  f"{comm.NVLINK_BYTES_PER_S:.3e} B/s (data sheet), "
+                  f"comm/compute {row['comm_compute_ratio']:.4e}, predicted "
+                  f"query {row['predicted_query_s']:.6f} s, efficiency "
+                  f"{row['predicted_efficiency']:.4f}, at {rate:.4e} pairs/s "
+                  f"(this card's TorchProduct float32 query at {n}^2) "
+                  f"[{card}]")
+    return dict(rate_pairs_per_s=rate, rows=rows)
 
 
 def check_pcg_iterations(label, iterations, pcg):
@@ -2015,6 +2110,9 @@ def four_cards(card, single_card, sweep=False):
               f"{prof['wall_ms']:.3f} ms; device ms by operation [count, "
               f"ms]: {prof['device_ms']} [{card}, {FOUR_CARDS} cards]")
     records = reports[0]["records"]
+    # Before the records' checks, so that a failing one leaves these shown.
+    collectives = four_card_collectives(card, reports, records,
+                                        single_card[PRODUCT_CUBE])
     for record in records:
         if "schedule" in record:
             check(record["finite"], f"phase 8 {record}: not finite")
@@ -2047,12 +2145,47 @@ def four_cards(card, single_card, sweep=False):
                  f", ring chunk kernels {chunks:.4f} ms of "
                  f"{record['query_s'] * 1e3:.4f} ms")
               + f" [{card}, {FOUR_CARDS} cards]")
+    records.append({"collectives": collectives})
     print(f"phase 8: {time.perf_counter() - started:.1f} s [{card}]")
     if sweep:
         ring = next(r for r in records if r.get("schedule") == "ring"
                     and r["dataset"] == PRODUCT_CUBE)
         records.append({"sweep": four_card_sweep(card, reports, ring)})
     return records
+
+
+def four_card_collectives(card, reports, records, single_s):
+    """Phase 8's recorded collectives of one ring and one all-pairs query
+    on the cube, every rank's held to kmb_tpu_torch.comm's formula, and the
+    model's efficiency (at the single card's rate) beside the measured."""
+    from kmb_tpu_torch import comm
+
+    d, e, n = (int(v) for v in re.search(r"-D(\d+)-E(\d+)-M\d+-N(\d+)-",
+                                         PRODUCT_CUBE).groups())
+    out = {}
+    for schedule in SCHEDULES:
+        want = sorted(list(c) for c in comm.analytic(
+            schedule, FOUR_CARDS, n, d, e))
+        for report in reports:
+            rec = report["collectives"][schedule]
+            got = [list(c) for c in comm.inventory(rec["calls"])]
+            check(rec["queries"] == 1 and got == want,
+                  f"phase 8 rank {report['rank']} {schedule}: recorded "
+                  f"{got}, the formula {want}")
+        model = comm.predict(schedule, FOUR_CARDS, n, d, e,
+                             n * n / single_s)
+        measured = single_s / (FOUR_CARDS * next(
+            r["query_s"] for r in records if r.get("schedule") == schedule
+            and r["dataset"] == PRODUCT_CUBE))
+        out[schedule] = dict(collectives=want, model=model,
+                             measured_efficiency=measured)
+        print(f"phase 8: {schedule} on {PRODUCT_CUBE}, {FOUR_CARDS} cards: "
+              f"recorded collectives per query {want} on every rank, as the "
+              f"formula; predicted efficiency "
+              f"{model['predicted_efficiency']:.4f} (NVLink data-sheet rate,"
+              f" the single card's {n * n / single_s:.4e} pairs/s), measured"
+              f" {measured:.3f} [{card}, {FOUR_CARDS} cards]")
+    return out
 
 
 def four_card_sweep(card, reports, ring):
@@ -2119,6 +2252,31 @@ def ring_profile(arrays, top=6):
     return {"wall_ms": wall_ms, "device_ms": {
         e.key[:60]: [e.count, e.self_device_time_total / 1e3]
         for e in events[:top]}}
+
+
+def recorded_collectives(arrays):
+    """One query of each schedule of ShardedProduct on this rank, after a
+    warm-up query, with the mesh's collectives recorded
+    (parallel.sharded.record_collectives)."""
+    from kmb_tpu_torch.algorithms.torch_sharded import ShardedProduct
+    from kmb_tpu_torch.parallel.sharded import record_collectives
+
+    out = {}
+    for schedule in SCHEDULES:
+        algo = ShardedProduct(kernel=arrays["kernel"],
+                              dimension=arrays["source_points"].shape[1],
+                              schedule=schedule)
+        algo.prepare_data(source_points=arrays["source_points"],
+                          target_points=arrays["target_points"],
+                          same_points=bool(arrays["same_points"]))
+        algo.prepare_query(source_signal=arrays["source_signal"])
+        algo.query()
+        with record_collectives(algo.mesh) as recorder:
+            algo.query()
+        out[schedule] = dict(calls=recorder.calls, queries=recorder.queries,
+                             mesh=list(algo.mesh.shape))
+        algo.done()
+    return out
 
 
 def four_card_rank(args):
@@ -2198,7 +2356,9 @@ def four_card_rank(args):
         report = {"rank": rank, "device": str(dev),
                   "name": torch.cuda.get_device_name(dev),
                   "launches": launches, "records": records,
-                  "ring_profiles": profiles}
+                  "ring_profiles": profiles,
+                  "collectives": recorded_collectives(
+                      datasets[PRODUCT_CUBE])}
         if args.sweep:   # phase 10
             del datasets
             torch.cuda.empty_cache()
@@ -2388,13 +2548,13 @@ def sweep_truth_rel(answer, n, rows):
                  / torch.sqrt(torch.mean(ref ** 2)))
 
 
-def harness_path(card, sfu_rate, kernels, entries, datasets):
+def harness_path(card, kernels, datasets):
     """Phase 9: the harness around the engines on one card (see the
-    module docstring).  Appends the sweep's kernel shape to `entries`;
-    returns the phase's records."""
+    module docstring); returns the phase's records.  It adds no kernel
+    row: phase 11 times the sweep's kernel shape, 2^20 x 2^20 at D3."""
     from kmb_tpu_torch import scaling
     from kmb_tpu_torch.ops import _build
-    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+    from kmb_tpu_torch.ops.product import kernel_matvec
 
     started = time.perf_counter()
     built = {(kind, args) for kind, args, _, _ in kernels}
@@ -2427,43 +2587,6 @@ def harness_path(card, sfu_rate, kernels, entries, datasets):
           f"{json.dumps(row)}; RMS rel error {rel:.3e} against float64 on "
           f"{SWEEP_CHECK_ROWS} target rows [{card}]")
     del answers
-
-    # The sweep's kernel shape (p = 1: the whole 2^20 x 2^20 product in
-    # one call), against the plain version in one call, timed.
-    rng = np.random.default_rng(0)
-    x = torch.tensor(rng.standard_normal((SWEEP_N, 3)), dtype=torch.float32,
-                     device="cuda")
-    b = torch.tensor(rng.standard_normal((SWEEP_N, 1)), dtype=torch.float32,
-                     device="cuda")
-    kw = dict(kernel_name="gaussian")
-    got = kernel_matvec(x, x, b, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = kernel_matvec_torch(x, x, b, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err, krel = compare(got, ref)
-    check(krel <= KERNEL_TOL["float32"],
-          f"sweep shape: kernel vs plain {krel:.3e}")
-    del got, ref
-    ms = time_ms(lambda: kernel_matvec(x, x, b, **kw), 2)
-    device_ms = kernel_device_ms(lambda: kernel_matvec(x, x, b, **kw), 2,
-                                 call_ms=ms)
-    bound, bound_by, engine = bound_ms(SWEEP_N, SWEEP_N, 3, 1, "direct",
-                                       False, "float32", sfu_rate)
-    print(f"phase 9: direct kernel, normal D3 {SWEEP_N}^2 (the sweep's "
-          f"shape) [float32]: {ms:.4f} ms (kernel alone {device_ms} ms), "
-          f"plain {plain_ms:.1f} ms (one call), bound {bound:.4f} ms "
-          f"({engine}), max_abs_err vs plain {err:.3e} [{card}]")
-    entries.append(dict(
-        name="direct", route="cuda", source=SOURCE,
-        replaces=REPLACES["direct"], launches=sweep_launches,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=bound_by, library_ms=None,
-        at=f"normal D3 {SWEEP_N}^2 E1, scaling.measure at p = 1",
-        precision="float32", bound_engine=engine, kernel_device_ms=device_ms))
-    del x, b
-    torch.cuda.empty_cache()
 
     natives = native_runs(card, datasets)
     print(f"phase 9: {time.perf_counter() - started:.1f} s [{card}]")
@@ -2507,12 +2630,12 @@ def hook_in_this_process(card):
     return outcome
 
 
-def harness_phase(card, entries):
+def harness_phase(card):
     """Phase 9 in a process of its own (this script with --phase9-report),
     its output relayed: torch.profiler's CUDA records go missing in a
-    process that has launched many kernels since its last profiling
-    session (after phase 5), and the phase holds a trace's kernel events.
-    Appends the child's kernel entries to `entries`; returns its records."""
+    process that has paused for about a minute since a profiling session
+    (ROADMAP Queue 3), and the phase holds a trace's kernel events.
+    Returns the child's records."""
     here = hook_in_this_process(card)
     torch.cuda.empty_cache()   # the card's memory, for the other process
     tmp = tempfile.mkdtemp(prefix="kmb_phase9_")
@@ -2538,30 +2661,240 @@ def harness_phase(card, entries):
             proc.wait()
         proc.stdout.close()
         shutil.rmtree(tmp, ignore_errors=True)
-    entries.extend(out["entries"])
     return dict(out["records"], hook_in_main_process=here)
 
 
 def harness_process(report):
     """The process of phase 9: builds (or finds) the kernels, runs
-    `harness_path` and writes its records and kernel entries to
-    `report`."""
+    `harness_path` and writes its records to `report`."""
     from kmb_tpu_torch.ops import _build
 
     card = nvidia_smi("name,power.limit")
-    sfu_rate = special_function_rate(
-        torch.cuda.get_device_properties(0),
-        float(nvidia_smi("clocks.max.sm").split()[0]))
     library = _build.build()
     _build.load_library()
     kernels = ptxas_kernels(_build.report_path(library).read_text())
     datasets = load_datasets([name for name, _ in PROFILED]
                              + list(NATIVE_DATASETS), {}, card)
-    entries = []
-    records = harness_path(card, sfu_rate, kernels, entries, datasets)
+    records = harness_path(card, kernels, datasets)
     with open(report, "w") as f:
-        json.dump({"records": records, "entries": entries}, f)
+        json.dump({"records": records}, f)
     return 0
+
+
+def library_attention_fused(x, y, b):
+    """One PyTorch call for exponential attention softmax(x y^T) b at a
+    size whose logits would not fit the card (10^4 x 2^20): SDPA held to
+    its memory-efficient kernel (no fallback to the math path, which
+    forms the logits), q, k and v padded with zero columns to 32.  A
+    yardstick only: the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    width = 32
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, width - t.shape[1]))[None, None]
+
+    q, k, v = padded(x), padded(y), padded(b)
+    e = b.shape[1]
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return sdpa(q, k, v, scale=1.0)[0, 0, :, :e]
+    return call
+
+
+def run_cli(name, tmp, env):
+    """`python -m kmb_tpu_torch` on one dataset in a subprocess; returns
+    its output (stdout and stderr), failing the phase on a non-zero exit."""
+    cmd = [sys.executable, "-m", "kmb_tpu_torch", "--dataset", name,
+           "--algorithm", CLI_ALGORITHM, "--runs", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT)
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0,
+          f"phase 11: {' '.join(cmd[1:])} exited with {proc.returncode}:\n"
+          f"{out[-6000:]}")
+    print(f"phase 11: {' '.join(cmd[2:])}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def cli_path(card, sfu_rate, entries):
+    """Phase 11: the 2^20-point datasets through the CLI, in a temporary
+    data and results directory: the float64 truth over every row (its
+    seconds and the device memory it held), every tier's stored error
+    against it, the kernels at those shapes beside their plain version,
+    bound and (attention) the library; then the smoke twin.  Appends the
+    kernel rows to `entries`; returns the phase's records."""
+    import importlib.util
+
+    from kmb_tpu_torch import hdf5
+    from kmb_tpu_torch.datasets import TRUTH_LOG
+    from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+
+    started = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="kmb_phase11_")
+    env = dict(os.environ, KMB_DATA_DIR=os.path.join(tmp, "data"),
+               KMB_RESULTS_DIR=os.path.join(tmp, "results"),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    truth_line = re.compile(
+        re.escape(TRUTH_LOG).replace("%s", r"(\S+)")
+        .replace(r"%\.3f", r"([\d.]+)").replace("%d", r"(\d+)"))
+    launch_line = re.compile(r"TorchProduct\((\w+)\): kernel launches in "
+                             r"(\d+) queries: (\{.*\})")
+    records = []
+    try:
+        for name in CLI_DATASETS:
+            out = run_cli(name, tmp, env)
+            found = truth_line.search(out)
+            check(found and found.group(1) == name,
+                  f"phase 11 {name}: no truth line in the CLI's output")
+            truth_s, peak = float(found.group(3)), int(found.group(4))
+            check(peak < TRUTH_PEAK_BYTES,
+                  f"phase 11 {name}: the truth held {peak} bytes")
+            launches = {}
+            for tier, queries, counts in launch_line.findall(out):
+                check(int(queries) == 2, f"phase 11 {name}: {queries}")
+                launches[tier] = json.loads(counts)
+            with hdf5.open_read(os.path.join(tmp, "data",
+                                             f"{name}.hdf5")) as f:
+                arrays = {key: f[key][:] for key in (
+                    "source_points", "target_points", "source_signal",
+                    "target_signal")}
+                kernel = str(f.attrs["kernel"])
+                normalize = bool(f.attrs["normalize_rows"])
+            truth = arrays["target_signal"]
+            rms_truth = float(np.sqrt(np.mean(truth ** 2)))
+            which = "flash" if normalize and kernel in LOG_KERNELS else (
+                "direct")
+            symbol = f"kmb_{which}_matvec"
+            stored = {}
+            folder = os.path.join(tmp, "results", name, CLI_ALGORITHM)
+            for fn in sorted(os.listdir(folder)):
+                with hdf5.open_read(os.path.join(folder, fn)) as f:
+                    tier = re.search(r"\((\w+)\)", str(f.attrs["name"]))[1]
+                    result, error = f["result"][:], f["error"][:]
+                    query_s = float(f.attrs["query_time"])
+                check(np.all(np.isfinite(result))
+                      and result.shape == truth.shape,
+                      f"phase 11 {name} {tier}: not finite or misshapen")
+                rel = float(np.sqrt(np.mean(error ** 2))) / rms_truth
+                check(rel <= MAIN_PATH_BOUND[tier],
+                      f"phase 11 {name} {tier}: RMS error {rel:.3e} over "
+                      f"all {len(truth)} rows > {MAIN_PATH_BOUND[tier]}")
+                check(launches.get(tier, {}).get(symbol, 0) >= 2,
+                      f"phase 11 {name} {tier}: launches "
+                      f"{launches.get(tier)}")
+                stored[tier] = (query_s, rel)
+            check(sorted(stored) == sorted(TIERS),
+                  f"phase 11 {name}: results for {sorted(stored)}")
+            n, m = len(truth), len(arrays["source_points"])
+            print(f"phase 11: {name}: float64 truth in {truth_s:.3f} s on "
+                  f"the card, peak {peak / 2**30:.3f} GiB allocated; "
+                  f"{n * m:.4e} pairs [{card}]")
+            record = dict(dataset=name, truth_s=truth_s, truth_peak_bytes=peak,
+                          tiers={})
+            records.append(record)
+
+            y = cuda(arrays["source_points"])
+            x = cuda(arrays["target_points"])
+            b = cuda(arrays["source_signal"])
+            d, e = x.shape[1], b.shape[1]
+            # One plain call per code path, kept for the check on every
+            # row: the plain version runs the same code in float32 and
+            # float32x3 (it rounds only in bfloat16), and at 2^20 x 2^20 a
+            # call takes 40-50 s.
+            plain = {}   # by bfloat16 or not: (output, ms of the call)
+            for code, tier in ((False, "float32"), (True, "bfloat16")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = kernel_matvec_torch(x, y, b, kernel_name=kernel,
+                                           normalize_rows=normalize,
+                                           precision=tier)
+                torch.cuda.synchronize()
+                plain[code] = (want, (time.perf_counter() - t0) * 1e3)
+                torch.cuda.empty_cache()
+            library_ms = None
+            if which == "flash":
+                library = library_attention_fused(x, y, b)
+                _, lib_rel = compare(library(), plain[False][0])
+                check(lib_rel <= LIBRARY_TOL,
+                      f"library attention disagrees ({lib_rel:.3e})")
+                library_ms = time_ms(library, 3)
+            for tier in TIERS:
+                kw = dict(kernel_name=kernel, normalize_rows=normalize,
+                          precision=tier)
+                want, plain_ms = plain[tier == "bfloat16"]
+                got = kernel_matvec(x, y, b, fixed_source=True, **kw)
+                err, krel = compare(got, want)
+                check(krel <= KERNEL_TOL[tier],
+                      f"phase 11 {name} {tier}: kernel vs plain {krel:.3e} "
+                      f"on all {n} rows")
+                del got
+                ms = time_ms(lambda: kernel_matvec(
+                    x, y, b, fixed_source=True, **kw), 3)
+                device_ms = kernel_device_ms(lambda: kernel_matvec(
+                    x, y, b, fixed_source=True, **kw), call_ms=ms)
+                bound, bound_by, engine = bound_ms(n, m, d, e, which,
+                                                   normalize, tier, sfu_rate)
+                query_s, rel = stored[tier]
+                count = launches[tier][symbol]
+                print(f"phase 11: {which} kernel, {name} [{tier}]: CLI best "
+                      f"query {query_s * 1e3:.4f} ms, RMS rel error {rel:.3e}"
+                      f" over all {n} rows, launches {count} in 2 queries; "
+                      f"call {ms:.4f} ms (kernel alone {device_ms} ms), "
+                      f"plain {plain_ms:.1f} ms (one call"
+                      + (", float32's code" if tier == "float32x3" else "")
+                      + f"), bound "
+                      f"{bound:.4f} ms ({engine}), library {library_ms} ms, "
+                      f"max_abs_err vs plain {err:.3e} on all {n} rows "
+                      f"[{card}]")
+                record["tiers"][tier] = dict(query_s=query_s, rms=rel,
+                                             launches=count)
+                entries.append(dict(
+                    name=which, route="cuda", source=kernel_source(d, e),
+                    replaces=REPLACES[which], launches=count,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+                    at=f"{name} (python -m kmb_tpu_torch)", precision=tier,
+                    bound_engine=engine, kernel_device_ms=device_ms,
+                    main_path=True, cli_query_ms=query_s * 1e3,
+                    rms_vs_float64=rel))
+            del x, y, b, plain, want
+            torch.cuda.empty_cache()
+
+        # The smoke twin; its test step imports JAX, which this machine
+        # need not have, and would take minutes.
+        skip = ["tests"]
+        if importlib.util.find_spec("matplotlib") is None:
+            skip += ["plot", "website"]   # they draw with matplotlib
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kmb_tpu_torch.smoke", "--hardware", "GPU",
+             "--workdir", os.path.join(tmp, "smoke")]
+            + [arg for step in skip for arg in ("--skip", step)],
+            cwd=tmp, env=env, capture_output=True, text=True,
+            timeout=SMOKE_TIMEOUT)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("== ")]
+        check(proc.returncode == 0,
+              f"phase 11: smoke exited with {proc.returncode}:\n"
+              f"{(proc.stdout + proc.stderr)[-6000:]}")
+        print(f"phase 11: python -m kmb_tpu_torch.smoke --hardware GPU in "
+              f"{time.perf_counter() - t0:.1f} s, steps skipped {skip} (the "
+              "tests: time and JAX; plot and website: "
+              + ("matplotlib is not installed here" if "plot" in skip
+                 else "run") + "): " + " | ".join(lines) + f" [{card}]")
+        records.append(dict(smoke="ok", skipped=skip))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), "phase 11: temporary directory left")
+    print(f"phase 11: {time.perf_counter() - started:.1f} s [{card}]")
+    return records
 
 
 def sweep_on_ranks(rank):

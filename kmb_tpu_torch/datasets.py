@@ -7,12 +7,16 @@ arrays, split in two:
   the same name they are byte-identical to what kmb_tpu writes.
 - `ground_truth(arrays, device)` computes the float64 target signal with
   the plain PyTorch product (`kernel_matvec_torch` in float64) on the given
-  device; on the CPU below 10^7 pairs it uses the numpy oracle, as kmb_tpu
-  does.  On the card, 1.7e10 pairs take seconds.
+  device, in blocks of target rows against chunks of source columns whose
+  deferred states are merged, so no float64 temporary holds more than
+  `TRUTH_BLOCK_ENTRIES` entries: the 2^20-point datasets' 1.1e12 pairs
+  fit the card's memory.  On the CPU it uses the numpy oracle below 10^7
+  pairs and the native oracle above when that is built, as kmb_tpu does.
 - `get_dataset(name, device)` reads, or first writes, the HDF5 file of the
   reference spec (source/target points and signals, attrs task, kernel,
-  point_type, normalize_rows, same_points, density_estimation).  h5py is
-  imported only there: the in-memory path needs no h5py.
+  point_type, normalize_rows, same_points, density_estimation), through
+  h5py where it is installed and `kmb_tpu_torch.hdf5`'s own writer and
+  reader where it is not: the in-memory path needs neither.
 """
 
 from __future__ import annotations
@@ -20,15 +24,24 @@ from __future__ import annotations
 import logging
 import math
 import os
+import time
 
 import numpy as np
 
-from kmb_tpu_torch import resolve_device
+from kmb_tpu_torch import hdf5, native, resolve_device
 from kmb_tpu_torch.algorithms.bruteforce_numpy import blocked_kernel_product
 
 logger = logging.getLogger("kmb")
 
 NUMPY_TRUTH_MAX_PAIRS = 10**7
+# Logged when a dataset's truth is computed: name, device, seconds and the
+# peak of the device memory allocated meanwhile (0 on the CPU).
+TRUTH_LOG = "float64 truth of %s on %s: %.3f s, peak %d bytes allocated"
+# The float64 truth's blocks: at most this many entries in each (rows x
+# columns) temporary of the plain product (2^26: 512 MiB), with row blocks
+# of at least TRUTH_ROWS target rows where the cap allows.
+TRUTH_BLOCK_ENTRIES = 2**26
+TRUTH_ROWS = 256
 
 
 def get_dataset_fn(dataset):
@@ -52,62 +65,107 @@ def make_arrays(name):
     return dict(DATASETS[name](), name=name)
 
 
-def ground_truth(arrays, device="cuda"):
-    """(N, E) float64 product-direction truth for `make_arrays` output."""
-    import torch
+def ground_truth(arrays, device="cuda", *, max_entries=None):
+    """(N, E) float64 product-direction truth for `make_arrays` output.
 
-    from kmb_tpu_torch.ops.product import kernel_matvec_torch
-
+    On the CPU below NUMPY_TRUTH_MAX_PAIRS pairs the numpy oracle computes
+    it, above them the native oracle when its library is built.  Otherwise
+    the plain product runs in float64 on `device` over blocks of target
+    rows and chunks of source columns of at most `max_entries` entries
+    (default TRUTH_BLOCK_ENTRIES), each chunk's deferred state at its
+    global offsets (so the diagonal mask stays on the global diagonal) and
+    the states folded as the sharded schedules fold theirs.
+    """
     dev = resolve_device(device)
     y = arrays["source_points"]
     x = arrays["target_points"]
     b = arrays["source_signal"]
+    kernel, normalize_rows = arrays["kernel"], bool(arrays["normalize_rows"])
+    targets = None if arrays["same_points"] else x
     if dev.type == "cpu" and len(x) * len(y) <= NUMPY_TRUTH_MAX_PAIRS:
         return blocked_kernel_product(
-            kernel=arrays["kernel"], source_points=y,
-            target_points=None if arrays["same_points"] else x,
-            source_signal=b, normalize_rows=arrays["normalize_rows"])
+            kernel=kernel, source_points=y, target_points=targets,
+            source_signal=b, normalize_rows=normalize_rows)
+    if dev.type == "cpu" and native.is_available():
+        return native.native_kernel_product(
+            kernel=kernel, source_points=y, target_points=targets,
+            source_signal=b, normalize_rows=normalize_rows)
+    return _chunked_truth(targets, y, b, kernel, normalize_rows, dev,
+                          max_entries or TRUTH_BLOCK_ENTRIES)
+
+
+def _chunked_truth(x, y, b, kernel, normalize_rows, dev, max_entries):
+    """The float64 plain product of targets `x` (None: the sources) over
+    (rows x cols) blocks of at most `max_entries` entries, as numpy."""
+    import torch
+
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+    from kmb_tpu_torch.parallel.sharded import finalize, fold, uses_flash
 
     def to(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(dev)
 
-    ty = to(y)
-    tx = ty if arrays["same_points"] else to(x)
-    out = kernel_matvec_torch(
-        tx, ty, to(b), kernel_name=arrays["kernel"],
-        normalize_rows=bool(arrays["normalize_rows"]))
+    ty, tb = to(y), to(b)
+    tx = ty if x is None else to(x)
+    n, m = len(tx), len(ty)
+    cols = min(m, max(1, max_entries // TRUTH_ROWS))
+    rows = min(n, max(1, max_entries // cols))
+    flash = uses_flash(kernel, normalize_rows)
+    out = torch.empty((n, tb.shape[1]), dtype=torch.float64, device=dev)
+    for r0 in range(0, n, rows):
+        xb = tx[r0:r0 + rows]
+        state = None
+        for c0 in range(0, m, cols):
+            part = kernel_matvec_torch(
+                xb, ty[c0:c0 + cols], tb[c0:c0 + cols], kernel_name=kernel,
+                normalize_rows=normalize_rows, block_n=rows, deferred=True,
+                row_offset=r0, col_offset=c0)
+            state = fold(state, part, flash)
+        out[r0:r0 + rows] = finalize(state, flash, normalize_rows, False)
     return out.cpu().numpy()
 
 
 def write_output(filename, arrays, target_signal):
     """Write a dataset file in the reference HDF5 layout."""
-    import h5py
-
-    with h5py.File(filename, "w") as f:
-        for key in ("task", "kernel", "point_type", "normalize_rows",
-                    "short_description", "description", "same_points",
-                    "density_estimation"):
-            f.attrs[key] = arrays[key]
-        f["source_points"] = arrays["source_points"]
-        f["target_points"] = arrays["target_points"]
-        f["source_signal"] = arrays["source_signal"]
-        f["target_signal"] = target_signal
+    hdf5.write(filename, {key: arrays[key] for key in (
+        "task", "kernel", "point_type", "normalize_rows",
+        "short_description", "description", "same_points",
+        "density_estimation")}, {
+        "source_points": arrays["source_points"],
+        "target_points": arrays["target_points"],
+        "source_signal": arrays["source_signal"],
+        "target_signal": target_signal})
 
 
 def get_dataset(which, device="cuda"):
-    """Return (open h5py.File, point dimension D); generates if missing.
+    """Return (open HDF5 file, point dimension D); generates if missing.
 
     A missing file is generated locally, its truth computed on `device`.
+    The file is an h5py.File, or `hdf5.File` where h5py is missing.
     """
-    import h5py
-
     fn = get_dataset_fn(which)
     if not os.path.exists(fn):
         arrays = make_arrays(which)
-        write_output(fn, arrays, ground_truth(arrays, device))
-    f = h5py.File(fn, "r")
+        write_output(fn, arrays, _timed_truth(which, arrays, device))
+    f = hdf5.open_read(fn)
     dimension = int(f["source_points"].shape[-1])
     return f, dimension
+
+
+def _timed_truth(which, arrays, device):
+    """`ground_truth`, logged with its seconds and, on the card, the most
+    memory it held allocated (TRUTH_LOG)."""
+    import torch
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = time.perf_counter()
+    truth = ground_truth(arrays, dev)
+    seconds = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    logger.info(TRUTH_LOG, which, dev, seconds, peak)
+    return truth
 
 
 def _arrays(*, task, kernel, short_description, description, source_points,
@@ -384,8 +442,8 @@ KDE = {
         uniform_cube(n_points=10000, task="product", kernel="gaussian",
                      density_estimation=True),
 }
-# Scale configs.  The 2^20-point entries are registered for name parity;
-# their float64 truth (up to 1.1e12 pairs) is left to a later slice.
+# Scale configs (the 2^20-point entries: up to 1.1e12 pairs of float64
+# truth, computed on the card in blocks).
 SCALE = {
     _name("product", "cube", 3, 1, n, n, "gaussian"):
         uniform_cube(n_points=n, task="product", kernel="gaussian")

@@ -25,6 +25,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -50,6 +51,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # Extra -D switches of the sources, set by `use_defines` (measurement
 # tools: tools/wide_breakdown.py); none in the package's own build.
 DEFINES = ()
+
+# The kernels' function names (csrc/*.cuh), in a profiler's events'
+# names, demangled or not.
+KERNEL_NAME = re.compile(r"(?:small|large)_d(?:_wide)?_kernel")
 
 _lock = threading.Lock()
 _library = None

@@ -22,6 +22,13 @@ Schedules:
   overlaps the kernel; two buffers keep a chunk in flight from being
   overwritten.
 
+Every collective goes through one of five `Mesh` methods (`allreduce`,
+`src_allreduce`, `rotate`, `gather_rows`, `publish`); inside
+`record_collectives(mesh)` each call is tallied (op, group, dtype, shape,
+bytes, query), the port's counterpart of the collectives comm.py reads out
+of XLA's HLO (kmb_tpu_torch/comm.py).  Outside it a call costs one None
+check.
+
 Both use the engines' deferred state and global-offset contract
 (ops/product.py): row and column offsets and limits, the diagonal mask at
 global positions, (num, den) and base-2 (acc, m, l) states merged across
@@ -36,6 +43,7 @@ rank takes the same branch at every iteration.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -76,6 +84,36 @@ def _group(ranks):
     return _GROUPS[key]
 
 
+class CollectiveRecorder:
+    """The collectives a mesh issued while `record_collectives` was on: one
+    entry per call, with the op (the torch.distributed call), its group
+    ("mesh", "source axis" or "world"), the dtype, shape and bytes of the
+    tensor this rank handed in (for a rotation: the one it sent), and the
+    query it belongs to (`queries` counts the sharded products begun)."""
+
+    def __init__(self):
+        self.calls = []
+        self.queries = 0
+
+    def add(self, op, group, t):
+        self.calls.append(dict(
+            op=op, group=group, dtype=str(t.dtype).replace("torch.", ""),
+            shape=list(t.shape), bytes=t.numel() * t.element_size(),
+            query=self.queries))
+
+
+@contextlib.contextmanager
+def record_collectives(mesh):
+    """Tally the collectives `mesh` issues inside the block; yields the
+    `CollectiveRecorder`."""
+    recorder = CollectiveRecorder()
+    previous, mesh.recorder = mesh.recorder, recorder
+    try:
+        yield recorder
+    finally:
+        mesh.recorder = previous
+
+
 class Mesh:
     """Ranks laid out as a 1-D mesh (JAX's "shard" axis) or a 2-D (target,
     source) mesh (JAX's ("tgt", "src")), the counterpart of
@@ -97,6 +135,7 @@ class Mesh:
         self.member = rank in self.ranks
         self.index = self.ranks.index(rank) if self.member else None
         self.group = _group(self.ranks) if self.distributed else None
+        self.recorder = None   # a CollectiveRecorder while recording
         # 2-D: every target row's group, for the source-axis reductions;
         # none is needed (or made) when a row holds one rank.
         self.src_group = None
@@ -121,12 +160,16 @@ class Mesh:
     def allreduce(self, t, op=dist.ReduceOp.SUM):
         """`t` reduced over the whole mesh, in place (the solvers' hook)."""
         if self.distributed:
+            if self.recorder is not None:
+                self.recorder.add("all_reduce", "mesh", t)
             dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def src_allreduce(self, t, op=dist.ReduceOp.SUM):
         """`t` reduced over this rank's target row (2-D meshes)."""
         if self.src_group is not None:
+            if self.recorder is not None:
+                self.recorder.add("all_reduce", "source axis", t)
             dist.all_reduce(t, op=op, group=self.src_group)
         return t
 
@@ -134,6 +177,8 @@ class Mesh:
         """Post the ring rotation: `send` to the next rank, `recv` from the
         previous one.  Returns the requests to wait on."""
         p = self.size
+        if self.recorder is not None:
+            self.recorder.add("batch_isend_irecv", "mesh", send)
         ops = [dist.P2POp(dist.isend, send, self.ranks[(self.index + 1) % p],
                           self.group),
                dist.P2POp(dist.irecv, recv, self.ranks[(self.index - 1) % p],
@@ -145,6 +190,8 @@ class Mesh:
         target shard's rows (JAX's replicated output, `_slice_rows`)."""
         if not self.distributed:
             return local[:n]
+        if self.recorder is not None:
+            self.recorder.add("all_gather", "mesh", local)
         parts = [torch.empty_like(local) for _ in range(self.size)]
         dist.all_gather(parts, local.contiguous(), group=self.group)
         if len(self.shape) == 2:   # one copy of each target shard
@@ -156,6 +203,8 @@ class Mesh:
         rank to every rank of the world (the others pass a buffer of the
         result's shape).  The identity when the mesh is the world."""
         if self.distributed and self.size < self.world:
+            if self.recorder is not None:
+                self.recorder.add("broadcast", "world", t)
             dist.broadcast(t, src=self.ranks[0])
         return t
 
@@ -410,6 +459,8 @@ def shard_layout(mesh, schedule):
 
 def product_shard(xs, ys, bs, *, mesh, schedule, **kwargs):
     """`allpairs_shard` or `ring_shard` by schedule."""
+    if mesh.recorder is not None:
+        mesh.recorder.queries += 1
     if schedule == "allpairs":
         return allpairs_shard(xs, ys, bs, mesh=mesh, **kwargs)
     if schedule == "ring":

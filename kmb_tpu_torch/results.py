@@ -1,7 +1,8 @@
 """HDF5 result store.
 
 A copy of kmb_tpu/results.py (the port imports nothing of kmb_tpu) in which
-h5py is imported only where a file is written or read.
+h5py is imported only where a file is written or read, and a result is
+written by `kmb_tpu_torch.hdf5` (its own writer where h5py is missing).
 
 Result files live at `results/{dataset}/{algorithm}/{flat_params}.hdf5`
 (same path scheme as reference results.py:73-93, so sweeps resume at
@@ -22,6 +23,8 @@ import re
 import traceback
 
 import numpy as np
+
+from kmb_tpu_torch import hdf5
 
 
 class CustomJSONizer(json.JSONEncoder):
@@ -60,15 +63,9 @@ def get_result_filename(dataset=None, definition=None, query_arguments=None):
 def store_result(*, dataset, definition, query_arguments, attrs, result,
                  error):
     """Write one experiment's output and metadata."""
-    import h5py
-
     fn = get_result_filename(dataset, definition, query_arguments)
     os.makedirs(os.path.dirname(fn), exist_ok=True)
-    with h5py.File(fn, "w") as f:
-        for k, v in attrs.items():
-            f.attrs[k] = v
-        f["result"] = result
-        f["error"] = error
+    hdf5.write(fn, attrs, {"result": result, "error": error})
     # A success supersedes any failure marker from an earlier attempt.
     try:
         os.remove(fn + ".failed")

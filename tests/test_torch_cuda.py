@@ -313,6 +313,32 @@ def test_profiler_hook_after_many_launches(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_profiler_hook_never_writes_a_trace_without_the_kernels():
+    # The history that loses the hand kernels' profiler records (ROADMAP
+    # Queue 3): a profiled query, a pause of 75 s, then more profiled
+    # queries, in a fresh process (tools/profiler_sequence.py).  Whether
+    # or not CUPTI drops them this time, the hook never writes a trace
+    # without them: each session's trace holds them, or the hook refuses.
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "profiler_sequence.py"),
+         "--repeats", "5", "--child", "a 75-second pause"], cwd=root,
+        capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(counts)
+    assert counts["sessions"] == 10 and counts["lost unseen"] == 0
+    assert counts["kept"] + counts["refused"] == 10 and counts["kept"] >= 1
+
+
+@pytest.mark.cuda
 def test_launch_timer_after_the_profiler_suspects(tmp_path, monkeypatch,
                                                   cuda_points):
     # The history the profiler's lost records were traced to in long

@@ -79,11 +79,14 @@ def test_make_arrays_byte_identical(name, tmp_path, monkeypatch):
 
 
 def test_ground_truth_torch_path_matches_oracle(monkeypatch):
-    # Above the pair threshold the CPU truth comes from the float64 torch
-    # product; lower the threshold to compare it with the numpy oracle.
+    # Above the pair threshold the CPU truth comes from the native oracle
+    # where it is built, else from the float64 torch product; lower the
+    # threshold and hide the native oracle to compare the torch product
+    # with the numpy oracle.
     arrays = make_arrays(SMALL[0])
     want = ground_truth(arrays, device="cpu")
     monkeypatch.setattr("kmb_tpu_torch.datasets.NUMPY_TRUTH_MAX_PAIRS", 0)
+    monkeypatch.setattr("kmb_tpu_torch.native.is_available", lambda: False)
     got = ground_truth(arrays, device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-11, atol=1e-11)
 
@@ -213,7 +216,9 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
                    "kmb_tpu_torch.plotting.plot_variants",
                    "kmb_tpu_torch.plot", "kmb_tpu_torch.report",
                    "kmb_tpu_torch.website", "kmb_tpu_torch.create_dataset",
-                   "kmb_tpu_torch.scaling"):
+                   "kmb_tpu_torch.scaling", "kmb_tpu_torch.hdf5",
+                   "kmb_tpu_torch.comm", "kmb_tpu_torch.install",
+                   "kmb_tpu_torch.smoke", "kmb_tpu_torch.run_all"):
         assert module in report["modules"]
     loaded = report["loaded"]
     # Nor matplotlib or jinja2: the plots and the website import them

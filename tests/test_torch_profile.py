@@ -174,15 +174,18 @@ def test_activities_follow_the_device(device, activities, tmp_path,
 
 
 class _FakeProfile:
-    """What the hook's trace callback reads of a finished profile."""
+    """What the hook's trace callback reads of a finished profile: events
+    of these device types, with these names (default: none of the hand
+    kernels')."""
 
-    def __init__(self, device_types):
+    def __init__(self, device_types, names=None):
         self.device_types = device_types
+        self.names = names or [""] * len(device_types)
         self.exported = []
 
     def events(self):
-        return [type("Event", (), {"device_type": t})()
-                for t in self.device_types]
+        return [type("Event", (), {"device_type": t, "name": n})()
+                for t, n in zip(self.device_types, self.names)]
 
     def export_chrome_trace(self, path):
         self.exported.append(path)
@@ -214,6 +217,42 @@ def test_a_cuda_trace_without_kernels_is_refused(device_types, written,
         assert prof.exported == []
         with open(failed) as f:
             assert "no CUDA kernel" in f.read()
+
+
+KERNEL = ("void kmb::(anonymous namespace)::small_d_kernel<0, 3, 1, false, "
+          "false, false>(kmb::Args)")
+
+
+@pytest.mark.parametrize("names, launched, written", [
+    (["aten::mul", KERNEL], 1, True),
+    (["aten::mul", "Memset (Device)"], 0, True),   # no hand kernel launched
+    (["aten::mul", "Memset (Device)"], 1, False),  # launched, records lost
+    (["aten::mul", "Memset (Device)"], 3, False)])
+def test_a_trace_without_the_hand_kernels_is_refused(
+        names, launched, written, tmp_path, monkeypatch):
+    # CUPTI has dropped the hand kernels' records while keeping other
+    # device events (tools/profiler_sequence.py): a trace of a query that
+    # launched them must hold one of theirs, or the hook refuses it.
+    import torch
+
+    from kmb_tpu_torch.ops import _build
+
+    monkeypatch.setenv("KMB_PROFILE_DIR", str(tmp_path))
+    tracer, trace_dir = runner._maybe_profile(PRODUCT, _product(), 0, 1, 1,
+                                              torch.device("cuda"))
+    monkeypatch.setattr(_build.DIRECT, "launches",
+                        _build.DIRECT.launches + launched)
+    prof = _FakeProfile(["DeviceType.CPU", "DeviceType.CUDA"], names)
+    if written:
+        tracer.on_trace_ready(prof)
+        assert prof.exported == [os.path.join(trace_dir, runner.TRACE_FILE)]
+    else:
+        with pytest.raises(RuntimeError, match=f"no CUDA kernel of the "
+                           f"{launched} launches"):
+            tracer.on_trace_ready(prof)
+        assert prof.exported == []
+        assert os.path.exists(os.path.join(trace_dir,
+                                           runner.FAILED_TRACE_FILE))
 
 
 def test_a_cpu_trace_needs_no_kernel(tmp_path, monkeypatch):
