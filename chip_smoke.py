@@ -90,6 +90,14 @@ Phases, each of which must pass:
    and phase 5's limits, the products also against the single-card
    TorchProduct answer, the PCG iterations within max(3, 10%) of the
    single-card TorchSolverCG's, its sketch one launch per ring chunk.
+   Before them, the single card's Nystrom PCG over four orderings of the
+   points on "gram" factors from two sketches of the same test matrix
+   (one launch; the ring's 16 chunk launches for four virtual ranks on
+   the packed (y | b) signal the ranks rotate, folded); each sketch's
+   per-column error against the float64 sketch on the card and each
+   route's factors against the one launch's are printed, the virtual
+   ring's errors (max and median) held within 1.5x of the one launch's,
+   and its ordering-0 count held to the band phase 8 uses.
    Then the per-shard arithmetic of four cards on this one: the ring's
    chunks and fold for four virtual ranks, the all-pairs blocks on a
    virtual 2 x 2 grid, against the single-card product and the float64
@@ -107,7 +115,13 @@ Phases, each of which must pass:
    held against the same truths and limits; each query's time is printed
    beside the single-card time of phase 7, the scaling efficiency
    (single-card time / (4 x sharded time)) and, for the ring, the sum of
-   its chunk kernels' times (CUDA events, the slowest rank's).  One ring
+   its chunk kernels' times (CUDA events, the slowest rank's).  Each rank
+   also runs the sharded PCG loop on the single card's "gram" factors of
+   the same test matrix and records the dtypes its sharded build sums
+   over the ranks; rank 0 holds the four-card sketch, gathered, against
+   the float64 sketch on the card (its errors within 1.5x of the one
+   launch's, as in phase 7); these are printed before the checks, and
+   the launch counts are read before this split runs.  One ring
    and one all-pairs query on the cube run with the mesh's collectives
    recorded (parallel.sharded.record_collectives): every rank's counts
    and bytes must equal kmb_tpu_torch.comm's formula, and the model's
@@ -358,6 +372,9 @@ SHARDED_SOLVERS = (
 SHARDED_DATASETS = SHARDED_PRODUCTS + (CUBE_131072, SPHERE_131072)
 FOUR_CARDS = 4
 PCG_ORDERINGS = 4   # orderings of the points for the single-card PCG spread
+# A ring-chunked sketch K @ Q's per-column errors against float64 (max and
+# median) within this factor of the one launch's.
+SKETCH_ERROR_RATIO = 1.5
 FOUR_CARD_TIMEOUT = 600   # seconds for phase 8's ranks, start to report
 
 # Phase 9: the runner's profiler hook on TorchProduct float32, by dataset:
@@ -1718,17 +1735,130 @@ def float64_residual(arrays, b):
     return float(torch.linalg.norm(kb - a64) / torch.linalg.norm(a64))
 
 
+def recording(matvec, seen):
+    """`matvec`, appending each call's (input, output) to `seen`."""
+    def call(v):
+        out = matvec(v)
+        seen.append((v, out))
+        return out
+    return call
+
+
+def column_errors(sketch, exact):
+    """Each column's ||sketch - exact|| / ||exact||: (max, median, min)."""
+    col = (torch.linalg.vector_norm(sketch.double() - exact, dim=0)
+           / torch.linalg.vector_norm(exact, dim=0))
+    return [float(col.max()), float(col.median()), float(col.min())]
+
+
+def factor_distance(factors, reference, top=64):
+    """How far Nystrom factors (U, lam) lie from `reference`'s: the
+    largest relative difference of the `top` largest eigenvalues (each
+    relative to the reference's, floored at float32's epsilon times the
+    largest), and the largest principal angle (radians) between the spans
+    of their columns of U."""
+    (u, lam), (u0, lam0) = factors, reference
+    lam, lam0 = lam[:top].double(), lam0[:top].double()
+    floor = torch.finfo(torch.float32).eps * lam0[0]
+    cosines = torch.linalg.svdvals(u0[:, :top].double().T
+                                   @ u[:, :top].double())
+    return {"lam_rel": float(((lam - lam0).abs()
+                              / lam0.clamp_min(floor)).max()),
+            "max_angle": float(torch.arccos(cosines.min().clamp(max=1.0)))}
+
+
+def sketch_routes(dev, card, arrays, precond_rank, query):
+    """Phase 7's Nystrom PCG over PCG_ORDERINGS orderings of the points
+    (the test matrix's rows permuted with them), its "gram" factors built
+    from two sketches K @ Q of the same Q (one launch; the p = 4 virtual
+    ring's 16 chunk launches, as four cards compute it), each solved by
+    the single-card PCG.  On ordering 0, each sketch's per-column error
+    against the float64 sketch on the card and each route's factors
+    against the one launch's.  Returns the iterations by route (a list
+    over the orderings) and the record printed."""
+    import functools
+
+    from kmb_tpu_torch.ops import solve
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+    from kmb_tpu_torch.parallel import sharded
+
+    kernel = arrays["kernel"]
+    sketches = {
+        "one launch": lambda y: functools.partial(
+            solve.kernel_matvec, y, y, kernel_name=kernel),
+        "virtual ring": lambda y: functools.partial(
+            sharded.virtual_ring_product, y, y, p=FOUR_CARDS,
+            kernel_name=kernel),
+    }
+    y0 = cuda(arrays["source_points"])
+    rhs0 = cuda(arrays["target_signal"])
+    omega0 = sharded.draw_test_matrix(len(y0), precond_rank, dev)
+    orders = np.random.default_rng(0)
+    counts = {route: [] for route in sketches}
+    residuals = {route: [] for route in sketches}
+    seen, factors = {}, {}
+    for ordering in range(PCG_ORDERINGS):
+        perm = torch.as_tensor(
+            np.arange(len(y0)) if ordering == 0
+            else orders.permutation(len(y0)), device=dev)
+        y, rhs = y0[perm], rhs0[perm]
+        solve_kw = dict(kernel_name=kernel, tol=query["tol"],
+                        max_iters=query["max_iters"])
+        for route, make in sketches.items():
+            calls = []
+            u, lam = solve.nystrom_factors(recording(make(y), calls),
+                                           omega0[perm], method="gram")
+            _, iterations, residual = solve.cg_solve(
+                y, rhs, precond=functools.partial(
+                    solve.apply_nystrom_precond, u, lam), **solve_kw)
+            counts[route].append(iterations)
+            residuals[route].append(residual)
+            if ordering == 0:
+                (seen[route],) = calls
+                factors[route] = (u, lam)
+    q = seen["one launch"][0]
+    check(all(torch.equal(v, q) for v, _ in seen.values()),
+          "the sketch routes sketched different test matrices")
+    y64 = y0.double()
+    exact = kernel_matvec_torch(y64, y64, q.double(), kernel_name=kernel)
+    record = {"iterations": counts, "best_residuals": residuals,
+              "column_errors": {route: column_errors(s, exact)
+                                for route, (_, s) in seen.items()},
+              "vs_one_launch": {route: factor_distance(
+                  factors[route], factors["one launch"])
+                  for route in sketches if route != "one launch"}}
+    del y0, rhs0, omega0, y, rhs, y64, exact, seen, factors
+    torch.cuda.empty_cache()
+    print(f"phase 7: Nystrom PCG iterations over {PCG_ORDERINGS} orderings "
+          f"by the sketch of its 'gram' factors: {counts['one launch']} one "
+          f"launch, {counts['virtual ring']} the p = {FOUR_CARDS} virtual "
+          f"ring ({FOUR_CARDS ** 2} chunk launches on the packed (y | b) "
+          f"signal, folded); best relative residuals (tol {query['tol']}) "
+          + "; ".join(f"{route} " + ", ".join(f"{r:.3e}" for r in values)
+                      for route, values in residuals.items())
+          + f" [{card}]")
+    for route, errors in record["column_errors"].items():
+        print(f"phase 7: sketch K @ Q ({route}) against the float64 sketch "
+              f"on the card, per-column relative error max / median / min "
+              + " / ".join(f"{e:.3e}" for e in errors)
+              + (f"; its factors against the one launch's: top-64 "
+                 f"eigenvalues {record['vs_one_launch'][route]['lam_rel']:.3e}"
+                 f" apart, largest principal angle of the top-64 columns of "
+                 f"U {record['vs_one_launch'][route]['max_angle']:.3e} rad"
+                 if route in record["vs_one_launch"] else "")
+              + f" [{card}]")
+    return counts, record
+
+
 def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
     """Phase 7: the sharded path on one card (see the module docstring).
 
     Appends the ring chunk's kernel shapes at p = 4 to `entries`; returns
     one record per sharded run and the single-card baselines phase 8
     compares with."""
-    import functools
-
     import torch.distributed as dist
 
-    from kmb_tpu_torch.ops import _build, solve
+    from kmb_tpu_torch.ops import _build
     from kmb_tpu_torch.ops.product import kernel_matvec_torch
     from kmb_tpu_torch.parallel import multihost, sharded
     from kmb_tpu_torch.runner import run_on_arrays
@@ -1757,37 +1887,31 @@ def sharded_path(dev, card, sfu_rate, entries, datasets, solver_records):
                "query_s": row.attrs["query_time"]}
     # The "gram" PCG over orderings of the points (the test matrix's rows
     # permuted with them): the same system and factors, other roundings,
-    # as sharding brings.  Ordering 0 is the registry's.
+    # as sharding brings.  Ordering 0 is the registry's.  Beside it, the
+    # factors from the sketch of four virtual ranks' ring chunks.
     _, name, _, args, query, _, _ = SOLVER_PATH[0]
-    kernel = datasets[name]["kernel"]
-    y0 = cuda(datasets[name]["source_points"])
-    rhs0 = cuda(datasets[name]["target_signal"])
-    omega0 = sharded.draw_test_matrix(len(y0), args["precond_rank"], dev)
-    orders = np.random.default_rng(0)
-    counts = []
-    for ordering in range(PCG_ORDERINGS):
-        perm = torch.as_tensor(
-            np.arange(len(y0)) if ordering == 0
-            else orders.permutation(len(y0)), device=dev)
-        y, rhs = y0[perm], rhs0[perm]
-        u, lam = solve.nystrom_factors(
-            functools.partial(solve.kernel_matvec, y, y, kernel_name=kernel),
-            omega0[perm], method="gram")
-        _, iterations, _ = solve.cg_solve(
-            y, rhs, kernel_name=kernel, tol=query["tol"],
-            max_iters=query["max_iters"],
-            precond=functools.partial(solve.apply_nystrom_precond, u, lam))
-        counts.append(iterations)
-    pcg.update(gram_iterations=counts[0],
-               gram_spread=[min(counts), max(counts)])
-    del y0, rhs0, omega0, y, rhs, u, lam
+    counts, routes = sketch_routes(dev, card, datasets[name],
+                                   args["precond_rank"], query)
+    single_counts = counts["one launch"]
+    pcg.update(gram_iterations=single_counts[0],
+               gram_spread=[min(single_counts), max(single_counts)],
+               sketch_routes=routes)
     print(f"phase 7: single-card baselines: TorchProduct float32 query "
           + ", ".join(f"{name} {qt:.6f} s" for name, (_, qt) in single.items())
           + f"; TorchSolverCG Nystrom PCG ('svd' factors) "
           f"{pcg['iterations']} iterations, query {pcg['query_s']:.4f} s; "
           f"the same PCG on 'gram' factors {pcg['gram_iterations']} "
-          f"iterations, {counts} over {PCG_ORDERINGS} orderings of the "
-          f"points [{card}]")
+          f"iterations, {single_counts} over {PCG_ORDERINGS} orderings of "
+          f"the points [{card}]")
+    # The chunked sketch is held by its error; its PCG count, a stall
+    # position (see check_pcg_iterations), to the band phase 8 holds the
+    # four cards' count to.
+    errors = routes["column_errors"]
+    check_sketch_errors("phase 7 virtual ring", errors["virtual ring"],
+                        errors["one launch"])
+    check_pcg_iterations("phase 7 PCG on the 'gram' factors of the p = 4 "
+                         "virtual ring's sketch (a stall position, held to "
+                         "phase 8's band)", counts["virtual ring"][0], pcg)
 
     records = []
     check(multihost.initialize(f"localhost:{free_port()}", num_processes=1,
@@ -2032,15 +2156,30 @@ def comm_model(card, n, query_s):
     return dict(rate_pairs_per_s=rate, rows=rows)
 
 
+def check_sketch_errors(label, errors, one_launch):
+    """A ring-chunked sketch K @ Q is as accurate as the one launch: its
+    per-column relative errors against the float64 sketch, (max, median,
+    min) as `column_errors` gives them, within SKETCH_ERROR_RATIO of the
+    one launch's in max and median."""
+    for i, what in enumerate(("max", "median")):
+        check(errors[i] <= SKETCH_ERROR_RATIO * one_launch[i],
+              f"{label} sketch: {what} per-column error {errors[i]:.3e}, "
+              f"one launch {one_launch[i]:.3e} (within "
+              f"{SKETCH_ERROR_RATIO}x)")
+
+
 def check_pcg_iterations(label, iterations, pcg):
     """The sharded Nystrom PCG iterates as the single card does on the
     same factor route ("gram"): its count lies within the single-card
     counts over PCG_ORDERINGS orderings of the points, widened by max(3,
     10%) (the band of tests/test_parallel.py:135-160).  One count is not
-    the reference: sharding changes the roundings, and at 131072 points
-    the count moves with them (the "gram" PCG took 121 iterations on one
-    NVIDIA H100 and 142 on four; over three draws of the test matrix 121,
-    80 and 81, nystrom_routes.py)."""
+    the reference.  At 131072 points and tol 1e-6 no route meets the
+    tolerance: each solve stalls at a best residual of 1.0e-6 to 1.7e-6,
+    on a float64 matvec too, and ends PCG_STALL_WINDOW iterations after
+    it, so its count is where that residual fell on a plateau, and moves
+    with any change of rounding: 106 to 203 on one NVIDIA H100 over the
+    orderings, the ring's chunking, column splits and the plain product
+    (tools/pcg_floor.py)."""
     lo, hi = pcg["gram_spread"]
     check(lo - max(3, 0.1 * lo) <= iterations <= hi + max(3, 0.1 * hi),
           f"{label}: {iterations} iterations, single card on the same "
@@ -2114,6 +2253,32 @@ def four_cards(card, single_card, sweep=False):
     collectives = four_card_collectives(card, reports, records,
                                         single_card[PRODUCT_CUBE])
     for record in records:
+        if "sketch" in record:
+            sketch = record["sketch"]
+            print(f"phase 8: rank 0, {record['label']}: "
+                  f"{sketch['sharded_iterations']} iterations (best "
+                  f"residual {sketch['sharded_residual']:.3e}) on the "
+                  f"sharded build's factors, "
+                  f"{sketch['single_factor_iterations']} (best "
+                  f"{sketch['single_factor_residual']:.3e}) on the single "
+                  f"card's 'gram' factors of the same test matrix "
+                  f"(single card on them "
+                  f"{single_card['pcg']['gram_iterations']}); the "
+                  f"build's sums over the ranks in "
+                  f"{sketch['reduced_dtypes']}; its test matrix "
+                  f"{sketch['q_max_abs_diff']:.3e} from the single "
+                  f"card's; sketch per-column relative error against "
+                  f"float64 max / median / min "
+                  + " / ".join(f"{e:.3e}" for e in sketch["column_errors"])
+                  + " (one launch "
+                  + " / ".join(f"{e:.3e}" for e in
+                               sketch["one_launch_column_errors"])
+                  + f"); factors against the one launch's: top-64 "
+                  f"eigenvalues {sketch['vs_one_launch']['lam_rel']:.3e} "
+                  f"apart, largest principal angle "
+                  f"{sketch['vs_one_launch']['max_angle']:.3e} rad "
+                  f"[{card}, {FOUR_CARDS} cards]")
+    for record in records:
         if "schedule" in record:
             check(record["finite"], f"phase 8 {record}: not finite")
             check(record["rms"] <= MAIN_PATH_BOUND["float32"],
@@ -2125,6 +2290,9 @@ def four_cards(card, single_card, sweep=False):
             check(record["true_residual"] <= record["limit"],
                   f"phase 8 {record['label']}: true residual "
                   f"{record['true_residual']:.3e}")
+            check_sketch_errors(f"phase 8 {FOUR_CARDS}-card ring",
+                                record["sketch"]["column_errors"],
+                                record["sketch"]["one_launch_column_errors"])
             pcg = single_card["pcg"]
             check_pcg_iterations(f"phase 8 {record['label']}",
                                  record["iterations"], pcg)
@@ -2316,14 +2484,17 @@ def four_card_rank(args):
         (row,) = run_on_arrays(definition("torch_sharded", "ShardedSolverCG",
                                           arrays, solver_args, query),
                                arrays, runs=2)
+        # The main path's launches, before the split's own.
+        launches = {k.symbol: k.launches for k in _build.KERNELS}
         records.append(dict(
             label=label, dataset=name, ranks=row.attrs["n_chips"],
             build_s=row.attrs["build_time"], query_s=row.attrs["query_time"],
             iterations=row.attrs["cg_iterations"],
             reported_residual=row.attrs["cg_relative_residual"],
             true_residual=(float64_residual(arrays, row.result)
-                           if rank == 0 else None), limit=limit))
-        launches = {k.symbol: k.launches for k in _build.KERNELS}
+                           if rank == 0 else None), limit=limit,
+            sketch=four_card_sketch(arrays, solver_args["precond_rank"],
+                                    query, dev)))
 
         # This rank's ring chunks, each kernel call timed alone; the
         # slowest rank's sum beside the ring query's time.
@@ -2369,6 +2540,83 @@ def four_card_rank(args):
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def four_card_sketch(arrays, precond_rank, query, dev):
+    """Phase 8's split of the sharded Nystrom PCG on this rank of the
+    NCCL world: the sharded build (`build_sharded_precond`, its sketch and
+    the dtypes of the tensors it sums over the ranks recorded) under the
+    sharded PCG loop (`cg_solve_shard`), and the single card's "gram"
+    factors of the same test matrix (one launch on this card) handed to
+    the same loop.  On rank 0 only, the four-card sketch, gathered,
+    against the float64 sketch on the card, and the sharded factors
+    against the single card's."""
+    import functools
+
+    from kmb_tpu_torch.ops import solve
+    from kmb_tpu_torch.ops.product import kernel_matvec_torch
+    from kmb_tpu_torch.parallel import sharded
+
+    kernel = arrays["kernel"]
+    y = cuda(arrays["source_points"])
+    m = len(y)
+    mesh = sharded.make_mesh(device=dev)
+    prepared = sharded.prepare_sharded_cg(y, mesh=mesh, kernel_name=kernel)
+    rhs = sharded.shard_rows(arrays["target_signal"], mesh.size, mesh.index,
+                             dev)
+    real = sharded.nystrom_factors
+    calls, dtypes = [], []
+
+    def spy(matvec, omega, **kw):
+        reduce = kw.pop("allreduce")
+
+        def allreduce(t, *args):
+            dtypes.append(str(t.dtype).replace("torch.", ""))
+            return reduce(t, *args)
+        return real(recording(matvec, calls), omega, allreduce=allreduce,
+                    **kw)
+
+    sharded.nystrom_factors = spy
+    try:
+        prepared = sharded.build_sharded_precond(
+            prepared, kernel_name=kernel, precond_rank=precond_rank)
+    finally:
+        sharded.nystrom_factors = real
+    solve_kw = dict(kernel_name=kernel, tol=query["tol"],
+                    max_iters=query["max_iters"])
+    _, sharded_iterations, sharded_residual = sharded.cg_solve_shard(
+        prepared, rhs, **solve_kw)
+    single_calls = []
+    u1, lam1 = solve.nystrom_factors(
+        recording(functools.partial(solve.kernel_matvec, y, y,
+                                    kernel_name=kernel), single_calls),
+        sharded.draw_test_matrix(m, precond_rank, dev), method="gram")
+    single_factors = prepared._replace(
+        precond=sharded.sharded_precond_from_arrays(
+            u1, lam1.cpu().numpy(), mesh=mesh))
+    _, e1_iterations, e1_residual = sharded.cg_solve_shard(
+        single_factors, rhs, **solve_kw)
+    ((q_local, sketch_local),) = calls
+    # Collectives: every rank gathers.
+    q = mesh.gather_rows(q_local, m)
+    sketch = mesh.gather_rows(sketch_local, m)
+    u = mesh.gather_rows(prepared.precond.u, m)
+    record = {"sharded_iterations": sharded_iterations,
+              "sharded_residual": sharded_residual,
+              "single_factor_iterations": e1_iterations,
+              "single_factor_residual": e1_residual,
+              "reduced_dtypes": dtypes}
+    if mesh.index == 0:
+        ((q1, sketch1),) = single_calls
+        y64 = y.double()
+        exact = kernel_matvec_torch(y64, y64, q.double(), kernel_name=kernel)
+        record.update(
+            q_max_abs_diff=float((q - q1).abs().max()),
+            column_errors=column_errors(sketch, exact),
+            one_launch_column_errors=column_errors(sketch1, exact),
+            vs_one_launch=factor_distance((u, prepared.precond.lam),
+                                          (u1, lam1)))
+    return record
 
 
 def instantiation(name):

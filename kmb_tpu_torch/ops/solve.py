@@ -420,9 +420,14 @@ def nystrom_factors(matvec: Callable, omega, *, method: str = "svd",
     package's sharded solver): omega is orthonormalised by a Cholesky QR,
     and U comes from the eigendecompositions of the sketch's Grams.  Those
     run in float64: each Gram squares a condition number that float32
-    does not resolve (`nystrom_routes.py` on an H100: on the 131072-point
-    solver cube, Nystrom PCG at rank 256 took 165 iterations on float32
-    Grams without the QR, 121 with both, beside 142 on the "svd" route).
+    does not resolve.  PCG iteration counts on the 131072-point solver
+    cube do not rank these choices: there every route's PCG at rank 256
+    stalls above its 1e-6 tolerance (best residual 1.0e-6 to 1.7e-6, on
+    an exact float64 matvec too) and ends 60 iterations after its best
+    residual, anywhere from 106 to 203 iterations as roundings change
+    (tools/pcg_floor.py); the 165 (float32 Grams, no QR), 121 (both) and
+    142 ("svd") that `nystrom_routes.py` once read there lie in that
+    spread.
     Returns U (m, rank) orthonormal and lam (rank,) >= 0, descending, in
     float32.
 

@@ -401,21 +401,25 @@ def virtual_ring_product(x, y, b, *, p, kernel_name, normalize_rows=False,
                          density_estimation=False, precision="float32"):
     """The ring schedule's arithmetic for p virtual ranks in this process
     (no communication): every rank's chunks in ring order through
-    `ring_chunk` and `fold`, the finished rows concatenated.  It checks the
-    per-shard work of p cards on one; x, y and b are global tensors."""
+    `ring_chunk` and `fold`, each chunk's points and signal the halves of
+    its packed (y | b) buffer as `ring_shard` passes them, the finished
+    rows concatenated.  It checks the per-shard work of p cards on one;
+    x, y and b are global tensors."""
     kw = dict(n=len(x), m=len(y), kernel_name=kernel_name,
               normalize_rows=normalize_rows,
               density_estimation=density_estimation, precision=precision)
     use_flash = uses_flash(kernel_name, normalize_rows)
+    d = y.shape[1]
     rows = []
     for me in range(p):
         xs = shard_rows(x, p, me, x.device)
         state = None
         for step in range(p):
             owner = (me - step) % p
-            part = ring_chunk(xs, shard_rows(y, p, owner, x.device),
-                              shard_rows(b, p, owner, x.device), me=me,
-                              step=step, p=p, **kw)
+            cur = torch.cat([shard_rows(t, p, owner, x.device)
+                             for t in (y, b)], dim=1)
+            part = ring_chunk(xs, cur[:, :d], cur[:, d:], me=me, step=step,
+                              p=p, **kw)
             state = fold(state, part, use_flash)
         rows.append(finalize(state, use_flash, normalize_rows,
                              density_estimation))

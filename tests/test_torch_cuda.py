@@ -931,3 +931,37 @@ def test_sharded_solve_in_an_nccl_world_of_one_is_bit_identical(
                                              tol=1e-6, max_iters=300)
     assert it == want_it > 0 and res == want_res
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ring_chunked_sketch_as_accurate_as_one_launch(cuda_points):
+    # The sharded Nystrom build's sketch K @ Q at E = 256 as four ranks
+    # compute it (16 chunk launches of the wide mode on the packed (y | b)
+    # signal, folded in ring order) against one launch: each column's
+    # error against float64 within 1.5x of the one launch's (max and
+    # median over the columns; 1.009x and 0.975x at 131072 points,
+    # chip_smoke.py phase 7).  A chunk on the packed signal's strided
+    # halves is the chunk on contiguous shards, bit for bit.
+    from kmb_tpu_torch.parallel import sharded
+
+    _, y, q = cuda_points(1, 32768, 3, 256)
+    one = kernel_matvec(y, y, q, kernel_name="gaussian")
+    ring = sharded.virtual_ring_product(y, y, q, p=4, kernel_name="gaussian")
+    ys, qs = (sharded.shard_rows(t, 4, 1, y.device) for t in (y, q))
+    packed = torch.cat([ys, qs], dim=1)
+    chunk = dict(me=2, step=1, p=4, n=len(y), m=len(y),
+                 kernel_name="gaussian")
+    assert torch.equal(
+        sharded.ring_chunk(ys, packed[:, :3], packed[:, 3:], **chunk)[0],
+        sharded.ring_chunk(ys, ys, qs, **chunk)[0])
+    y64 = y.double()
+    exact = kernel_matvec_torch(y64, y64, q.double(), kernel_name="gaussian")
+    norms = torch.linalg.vector_norm(exact, dim=0)
+
+    def errors(sketch):
+        return torch.linalg.vector_norm(sketch.double() - exact,
+                                        dim=0) / norms
+
+    got, want = errors(ring), errors(one)
+    assert float(got.max()) <= 1.5 * float(want.max())
+    assert float(got.median()) <= 1.5 * float(want.median())

@@ -199,3 +199,84 @@ def test_pcg_on_jax_factors_matches_jax(inputs, ranks, jax_meshes):
     assert abs(got_iters - int(want_iters)) <= max(3, 0.1 * int(want_iters))
     np.testing.assert_allclose(ranks[0]["pcg_jax_factors/solution"],
                                inputs["pcg/b"], atol=5e-2)
+
+
+# The sharded Nystrom build's sketch K @ Q at E = rank, as the ring's ranks
+# compute it (PERF.md, the split of the four-card PCG's count).  On the
+# CPU, in this process.
+SKETCH_M, SKETCH_RANK = 300, 40
+
+
+@pytest.fixture(scope="module")
+def sketch_inputs():
+    rng = np.random.default_rng(7)
+    return (rng.random((SKETCH_M, 3)).astype(np.float32),
+            rng.standard_normal((SKETCH_M, SKETCH_RANK)).astype(np.float32))
+
+
+def test_ring_chunked_sketch_matches_jax(sketch_inputs, jax_meshes):
+    # Four virtual ranks, each chunk's points and signal the strided halves
+    # of the packed (y | b) buffer the ranks rotate (a chunk on them equals
+    # the chunk on contiguous shards), folded in ring order.
+    import torch
+
+    from kmb_tpu_torch.parallel import sharded
+
+    y, q = sketch_inputs
+    want = _jax_product(jax_meshes, "ring", y, y, q, kernel_name="gaussian")
+    ty, tq = torch.from_numpy(y), torch.from_numpy(q)
+    got = sharded.virtual_ring_product(ty, ty, tq, p=WORLD,
+                                       kernel_name="gaussian")
+    assert got.shape == (SKETCH_M, SKETCH_RANK)
+    np.testing.assert_allclose(got.numpy(), want, **PRODUCT_TOL)
+    ys, qs = (sharded.shard_rows(t, WORLD, 1, "cpu") for t in (ty, tq))
+    packed = torch.cat([ys, qs], dim=1)
+    chunk = dict(me=2, step=1, p=WORLD, n=SKETCH_M, m=SKETCH_M,
+                 kernel_name="gaussian")
+    np.testing.assert_array_equal(
+        sharded.ring_chunk(ys, packed[:, :3], packed[:, 3:], **chunk)[0],
+        sharded.ring_chunk(ys, ys, qs, **chunk)[0])
+
+
+def test_sharded_gram_build_sums_in_float64(sketch_inputs, jax_meshes):
+    # Every Gram of the sharded "gram" build is summed over the ranks in
+    # float64 (the sketch's squared norm in float32), and a mesh of one
+    # gives the single card's factors.  Their leading eigenvalues are K's
+    # (float64) within 5e-3 and JAX's "gram" build's within 5e-2 (JAX
+    # draws its own test matrix and shifts by more).
+    import torch
+
+    from kmb_tpu_torch.ops import solve
+    from kmb_tpu_torch.parallel import sharded
+
+    y, _ = sketch_inputs
+    mesh = sharded.make_mesh(device="cpu")
+    reduced = []
+
+    def allreduce(t, *args):
+        reduced.append(t.dtype)
+        return t
+
+    mesh.allreduce = allreduce
+    omega = sharded.draw_test_matrix(SKETCH_M, SKETCH_RANK, "cpu")
+    prepared = sharded.prepare_sharded_cg(
+        y, mesh=mesh, kernel_name="gaussian", precond_rank=SKETCH_RANK,
+        omega=omega)
+    assert reduced == [torch.float64, torch.float32, torch.float64,
+                       torch.float64]
+    ty = torch.from_numpy(y)
+    u, lam = solve.nystrom_factors(
+        lambda v: solve.kernel_matvec(ty, ty, v, kernel_name="gaussian"),
+        omega, method="gram")
+    np.testing.assert_allclose(prepared.precond.lam.numpy(), lam.numpy(),
+                               rtol=1e-5, atol=1e-6 * float(lam[0]))
+    k = jnp.asarray(kernel_matrix(kernel="gaussian",
+                                  source_points=np.float64(y)), jnp.float32)
+    _, want_lam = jsolve.nystrom_preconditioner(
+        lambda v: jnp.matmul(k, v, precision=jax.lax.Precision.HIGHEST),
+        SKETCH_M, SKETCH_RANK, method="gram")
+    top = SKETCH_RANK // 4
+    exact = np.linalg.eigvalsh(np.float64(k))[::-1][:top]
+    np.testing.assert_allclose(lam.numpy()[:top], exact, rtol=5e-3)
+    np.testing.assert_allclose(lam.numpy()[:top], np.asarray(want_lam)[:top],
+                               rtol=5e-2)
