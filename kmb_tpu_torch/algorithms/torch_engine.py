@@ -33,6 +33,7 @@ from kmb_tpu_torch.ops.solve import (
     SPD_KERNELS, apply_nystrom_precond, block_jacobi_preconditioner,
     cg_solve, dense_apply, dense_factor, ir_solve, nystrom_preconditioner,
 )
+from kmb_tpu_torch.trace import span
 from kmb_tpu_torch.utils import hard_fence
 
 
@@ -58,8 +59,9 @@ class _TorchAlgorithm:
         return torch.as_tensor(np.asarray(array, dtype=dtype)).to(self.device)
 
     def get_result(self):
-        return np.ascontiguousarray(
-            self.res.detach().cpu().numpy(), dtype=np.float64)
+        with span("engine.read"):
+            return np.ascontiguousarray(
+                self.res.detach().cpu().numpy(), dtype=np.float64)
 
     def get_memory_usage(self):
         """Device bytes allocated (kB) on CUDA; host RSS on the CPU."""
@@ -112,8 +114,11 @@ class TorchProduct(_TorchAlgorithm, BaseProduct):
         pass
 
     def prepare_query(self, *, source_signal):
-        self.b = (None if self.density_estimation
-                  else self._stage(source_signal))
+        if self.density_estimation:
+            self.b = None
+            return
+        with span("engine.stage_signal"):
+            self.b = self._stage(source_signal)
 
     def query(self):
         out = kernel_matvec(

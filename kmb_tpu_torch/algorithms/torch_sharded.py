@@ -27,6 +27,7 @@ from kmb_tpu_torch.parallel import multihost
 from kmb_tpu_torch.parallel.sharded import (
     build_sharded_precond, cg_solve_shard, make_mesh, prepare_sharded_cg,
     product_shard, shard_layout, shard_rows)
+from kmb_tpu_torch.trace import span
 from kmb_tpu_torch.utils import hard_fence
 
 
@@ -110,7 +111,8 @@ class ShardedProduct(_ShardedAlgorithm, BaseProduct):
         self.e = b.shape[1]
         if self.mesh.member:
             _, sources = shard_layout(self.mesh, self._schedule)
-            self.bs = shard_rows(b, *sources, self.mesh.device)
+            with span("engine.stage_signal"):
+                self.bs = shard_rows(b, *sources, self.mesh.device)
 
     def query(self):
         if self.density_estimation and self.normalize_rows:

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 
 from kmb_tpu_torch.ops import _build
 from kmb_tpu_torch.ops.kernels import KernelSpec, get_kernel
+from kmb_tpu_torch.trace import count, span
 
 FLASH_NEG_INF = -1e30
 PRECISIONS = ("float32", "float32x3", "bfloat16")
@@ -324,8 +325,9 @@ def _stage_points(t, scale, *, large, bf16):
     coordinates.  Large D pads rows to whole 16 bytes (4 f32 or 8 bf16
     values), passes bf16 points in the bfloat16 tier, and computes the
     float32 norms |t|^2 once, from the staged values.  Zero coordinates
-    change no form.
+    change no form.  Each call counts as `points_staged`.
     """
+    count("points_staged")
     t = t.float() * scale
     d = t.shape[1]
     if not large:
@@ -563,61 +565,74 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
         return (points, norms,
                 None if planes is None else tf32_planes(points, planes))
 
-    y_points, y_norms, y_planes = (
-        _staged_source(y, (spec.point_scale, large, bf16, planes), stage_y)
-        if fixed_source else stage_y())
-    xp = ((y_points, y_norms) if x is y else
-          _stage_points(x, spec.point_scale, large=large, bf16=bf16))
+    with span("matvec.stage_sources"):
+        y_points, y_norms, y_planes = (
+            _staged_source(y, (spec.point_scale, large, bf16, planes),
+                           stage_y)
+            if fixed_source else stage_y())
+    if x is y:
+        xp = (y_points, y_norms)
+    else:
+        with span("matvec.stage_targets"):
+            xp = _stage_points(x, spec.point_scale, large=large, bf16=bf16)
     yp = (y_points if y_planes is None else y_planes, y_norms)
     if spec.on == "dot":   # no norms in a dot-product form
         xp, yp = (xp[0], None), (yp[0], None)
-    bs = b.float()
-    if bf16:
-        bs = bs.to(torch.bfloat16).float()
     dp = xp[0].shape[1]   # padded coordinates
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    if nc > 8 and large:
-        hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
-                                        align=TMA_SIGNAL_ALIGN)
-        signal = (tma_signal(hi, lo), None)
-    elif nc > 8:
-        hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
-                                        align=WIDE_TILE)
-        signal = tuple(None if p is None else tile_wide_signal(p, nc)
-                       for p in (hi, lo))
-    else:
-        signal, ldb = (F.pad(bs, (0, nc - e)).contiguous(), None), 0
-    splits = 1
-    if n:
-        rows, per_sm = _plan(device.index, dp, nc, kernel_id, use_flash,
-                             needs_den, bf16)
-        splits = choose_splits(-(-n // rows) * eblocks,
-                               per_sm * _sm_count(device.index), m_eff)
+    with span("matvec.stage_signal"):
+        bs = b.float()
+        if bf16:
+            bs = bs.to(torch.bfloat16).float()
+        if nc > 8 and large:
+            hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
+                                            align=TMA_SIGNAL_ALIGN)
+            signal = (tma_signal(hi, lo), None)
+        elif nc > 8:
+            hi, lo, ldb = stage_wide_signal(bs, nc * eblocks, bf16,
+                                            align=WIDE_TILE)
+            signal = tuple(None if p is None else tile_wide_signal(p, nc)
+                           for p in (hi, lo))
+        else:
+            signal, ldb = (F.pad(bs, (0, nc - e)).contiguous(), None), 0
+    with span("matvec.plan"):
+        splits = 1
+        if n:
+            rows, per_sm = _plan(device.index, dp, nc, kernel_id, use_flash,
+                                 needs_den, bf16)
+            splits = choose_splits(-(-n // rows) * eblocks,
+                                   per_sm * _sm_count(device.index), m_eff)
     launch = dict(n_ok=n_ok, m_eff=m_eff, kernel_id=kernel_id, diag=md,
                   shift=shift, splits=splits, bf16=bf16, ldb=ldb, nc=nc,
                   eblocks=eblocks)
-    out = new(splits, n, nc * eblocks)
 
     if use_flash:
-        state = (new(splits, n, 1), new(splits, n, 1))
+        with span("matvec.launch"):
+            out = new(splits, n, nc * eblocks)
+            state = (new(splits, n, 1), new(splits, n, 1))
+            if n:
+                _launch(_build.FLASH, (xp, yp), signal, (out, *state),
+                        **launch)
+        with span("matvec.merge"):
+            acc, mx, l = merge_flash_states(out, *state)
+            acc = acc[:, :e]
+            if deferred:
+                return acc, mx, l
+            return acc / l
+    with span("matvec.launch"):
+        out = new(splits, n, nc * eblocks)
+        den = new(splits, n, 1) if needs_den else None
         if n:
-            _launch(_build.FLASH, (xp, yp), signal, (out, *state), **launch)
-        acc, mx, l = merge_flash_states(out, *state)
-        acc = acc[:, :e]
-        if deferred:
-            return acc, mx, l
-        return acc / l
-    den = new(splits, n, 1) if needs_den else None
-    if n:
-        _launch(_build.DIRECT, (xp, yp), signal, (out, den), **launch)
-    num, den = merge_direct_states(out, den)
-    return _finalize_direct(num[:, :e], den, needs_den=needs_den,
-                            normalize_rows=normalize_rows,
-                            density_estimation=density_estimation,
-                            deferred=deferred)
+            _launch(_build.DIRECT, (xp, yp), signal, (out, den), **launch)
+    with span("matvec.merge"):
+        num, den = merge_direct_states(out, den)
+        return _finalize_direct(num[:, :e], den, needs_den=needs_den,
+                                normalize_rows=normalize_rows,
+                                density_estimation=density_estimation,
+                                deferred=deferred)
 
 
 def kernel_matvec(x, y, b, **kwargs):
@@ -627,7 +642,7 @@ def kernel_matvec(x, y, b, **kwargs):
     rows_aligned, cols_aligned); `block_n` sizes the plain version's row
     blocks and is ignored by the kernels, which choose their own tiles;
     `fixed_source` only keeps the kernels' staging of y
-    (`kernel_matvec_cuda`).
+    (`kernel_matvec_cuda`).  Either path is the span `matvec`.
     """
     fixed_source = kwargs.pop("fixed_source", False)
     kwargs.pop("interpret", None)
@@ -635,9 +650,10 @@ def kernel_matvec(x, y, b, **kwargs):
     kwargs.pop("rows_aligned", None)
     kwargs.pop("cols_aligned", None)
     block_n = kwargs.pop("block_n", None)
-    if isinstance(x, torch.Tensor) and x.is_cuda:
-        return kernel_matvec_cuda(x, y, b, fixed_source=fixed_source,
-                                  **kwargs)
-    if block_n is not None:
-        kwargs["block_n"] = block_n
-    return kernel_matvec_torch(x, y, b, **kwargs)
+    with span("matvec"):
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return kernel_matvec_cuda(x, y, b, fixed_source=fixed_source,
+                                      **kwargs)
+        if block_n is not None:
+            kwargs["block_n"] = block_n
+        return kernel_matvec_torch(x, y, b, **kwargs)

@@ -58,6 +58,7 @@ from kmb_tpu_torch.ops.product import (
 from kmb_tpu_torch.ops.solve import (
     SPD_KERNELS, NormalEquationsOp, _minres, _pcg, apply_nystrom_precond,
     nystrom_factors)
+from kmb_tpu_torch.trace import span
 
 ROW_MULTIPLE = 8   # shards are padded to a multiple of p * 8 rows, as in JAX
 
@@ -192,11 +193,12 @@ class Mesh:
             return local[:n]
         if self.recorder is not None:
             self.recorder.add("all_gather", "mesh", local)
-        parts = [torch.empty_like(local) for _ in range(self.size)]
-        dist.all_gather(parts, local.contiguous(), group=self.group)
-        if len(self.shape) == 2:   # one copy of each target shard
-            parts = parts[::self.shape[1]]
-        return torch.cat(parts)[:n]
+        with span("mesh.gather"):
+            parts = [torch.empty_like(local) for _ in range(self.size)]
+            dist.all_gather(parts, local.contiguous(), group=self.group)
+            if len(self.shape) == 2:   # one copy of each target shard
+                parts = parts[::self.shape[1]]
+            return torch.cat(parts)[:n]
 
     def publish(self, t):
         """A mesh over some of the ranks: its result, sent from its first
@@ -205,7 +207,8 @@ class Mesh:
         if self.distributed and self.size < self.world:
             if self.recorder is not None:
                 self.recorder.add("broadcast", "world", t)
-            dist.broadcast(t, src=self.ranks[0])
+            with span("mesh.publish"):
+                dist.broadcast(t, src=self.ranks[0])
         return t
 
 
@@ -371,7 +374,9 @@ def ring_shard(xs, ys, bs, *, mesh, n, m, kernel_name, normalize_rows=False,
     p - 1 rotations of the packed (y | b) chunk; the last chunk is consumed
     without being forwarded.  Each rotation is posted before the chunk's
     kernel is launched and waited for before the received chunk is read.
-    p = 1 is the plain engine call.
+    p = 1 is the plain engine call.  Spans: `ring.step` per chunk, with
+    `ring.post`, the chunk's `matvec`, `ring.fold` and `ring.wait` (the
+    wait for the rotation, which NCCL queues on the stream) in it.
     """
     kw = dict(n=n, m=m, kernel_name=kernel_name,
               normalize_rows=normalize_rows,
@@ -387,12 +392,19 @@ def ring_shard(xs, ys, bs, *, mesh, n, m, kernel_name, normalize_rows=False,
     nxt = torch.empty_like(cur)
     state = None
     for step in range(p):
-        requests = mesh.rotate(cur, nxt) if step < p - 1 else []
-        part = ring_chunk(xs, cur[:, :d], cur[:, d:], me=me, step=step, p=p,
-                          **kw)
-        state = fold(state, part, use_flash)
-        for request in requests:
-            request.wait()
+        with span("ring.step"):
+            requests = []
+            if step < p - 1:
+                with span("ring.post"):
+                    requests = mesh.rotate(cur, nxt)
+            part = ring_chunk(xs, cur[:, :d], cur[:, d:], me=me, step=step,
+                              p=p, **kw)
+            with span("ring.fold"):
+                state = fold(state, part, use_flash)
+            if requests:
+                with span("ring.wait"):
+                    for request in requests:
+                        request.wait()
         cur, nxt = nxt, cur
     return finalize(state, use_flash, normalize_rows, density_estimation)
 

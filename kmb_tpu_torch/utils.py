@@ -6,6 +6,8 @@ import contextlib
 
 import torch
 
+from kmb_tpu_torch.trace import span
+
 
 @contextlib.contextmanager
 def highest_precision():
@@ -28,10 +30,12 @@ def hard_fence(tree):
     """
     leaves = tree if isinstance(tree, (tuple, list)) else (tree,)
     leaves = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
-    for leaf in leaves:
-        if leaf.is_cuda:
-            torch.cuda.synchronize(leaf.device)
-    for leaf in leaves:
-        if leaf.numel():
-            leaf.abs().max().item()
+    with span("fence.wait"):   # the host waits for the device
+        for leaf in leaves:
+            if leaf.is_cuda:
+                torch.cuda.synchronize(leaf.device)
+    with span("fence.check"):  # the reduction, once the device is done
+        for leaf in leaves:
+            if leaf.numel():
+                leaf.abs().max().item()
     return tree

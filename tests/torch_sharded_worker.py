@@ -23,6 +23,9 @@ Modes:
   and rank 0's answers.
 - "subprocess-cli" (2 ranks, from the KMB_* variables): the CLI without
   --local, which must refuse to run; the message it exits with.
+- "trace" (2 or 4 ranks): two ring queries of ShardedProduct, each inside
+  a `kmb_tpu_torch.trace` recording; the second's span names, parents and
+  points staged, and both answers.
 """
 
 import os
@@ -118,6 +121,27 @@ def sharded(rank, inputs, out):
     out["pcg_jax_factors/solution"] = mesh.gather_rows(
         solution, len(inputs["pcg/y"])).numpy()
     out["pcg_jax_factors/iterations"] = np.int64(iters)
+
+
+def trace_mode(rank, world, inputs, out):
+    from kmb_tpu_torch import trace
+    from kmb_tpu_torch.algorithms.torch_sharded import ShardedProduct
+
+    engine = ShardedProduct(kernel="gaussian", dimension=3, schedule="ring",
+                            device="cpu")
+    engine.prepare_data(source_points=inputs["y"],
+                        target_points=inputs["x"])
+    engine.fit()
+    for i in range(2):
+        with trace.recording() as rec:
+            engine.prepare_query(source_signal=inputs["b"])
+            engine.query()
+            out[f"answer{i}"] = engine.get_result()
+    out["names"] = np.array([s.name for s in rec.spans])
+    out["parents"] = np.array([s.parent for s in rec.spans])
+    out["queries"] = np.array([s.query for s in rec.spans])
+    out["points_staged"] = np.int64(rec.counts.get("points_staged", 0))
+    engine.done()
 
 
 def multihost_mode(rank, world, inputs, out):
@@ -220,7 +244,7 @@ def main():
     torch.set_num_threads(1)
     from kmb_tpu_torch.parallel import multihost
 
-    if mode == "sharded":
+    if mode in ("sharded", "trace"):
         assert multihost.initialize(coordinator_address=f"file://{store}",
                                     num_processes=world, process_id=rank,
                                     device="cpu")
@@ -239,6 +263,8 @@ def main():
         scaling_mode(rank, world, inputs, out)
     elif mode == "subprocess-cli":
         subprocess_cli_mode(rank, world, inputs, out)
+    elif mode == "trace":
+        trace_mode(rank, world, inputs, out)
     else:
         multihost_mode(rank, world, inputs, out)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
