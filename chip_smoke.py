@@ -478,8 +478,9 @@ TENSOR_CORE_FORM = {"float32": (3, PEAK_TF32_FLOPS),
 # The instantiations the main and solver paths launch, by (template, or
 # the wide mode's source, and arguments as ptxas's mangled names list
 # them), for phase 1's register report: small_d<map, D, E, flash, den,
-# rnd>, large_d<map, E, flash, den, bf16>, small_d_wide_<D>_<tier><map, E
-# block, flash>, large_d_wide_<tier><map, flash, E block>.
+# rnd>, large_d<map, E, flash, den, bf16>, one_chunk_large_d<map, E, flash,
+# den>, small_d_wide_<D>_<tier><map, E block, flash>,
+# large_d_wide_<tier><map, flash, E block>.
 MAIN_PATH_KERNELS = {
     ("small_d_kernel", "0,3,1,0,0,0"): "cube, float32",
     ("small_d_kernel", "0,3,1,0,0,1"): "cube, bfloat16",
@@ -488,6 +489,8 @@ MAIN_PATH_KERNELS = {
     ("large_d_kernel", "0,1,0,0,1"): "D784, bfloat16",
     ("large_d_kernel", "3,8,1,0,0"): "attention, float32 (3xTF32)",
     ("large_d_kernel", "3,8,1,0,1"): "attention, bfloat16",
+    ("one_chunk_large_d_kernel", "3,1,1,0"): "attention D25 E1, float32 "
+                                             "(3xTF32, one chunk)",
     ("large_d_wide_tf32", "1,0,16"): "D256 E16, float32 (3xTF32)",
     ("large_d_wide_bf16", "1,0,16"): "D256 E16, bfloat16",
     ("large_d_wide_tf32", "1,0,32"): "D256 E64, float32 (two E blocks)",
@@ -500,7 +503,7 @@ MAIN_PATH_KERNELS = {
 # Kernel families of phase 1's report (a wide family: one source each).
 KERNEL_FAMILY = re.compile(
     r"(small_d_wide_[38]_(?:tf32|bf16)|large_d_wide_(?:tf32|bf16)"
-    r"|small_d_kernel|large_d_kernel)")
+    r"|one_chunk_large_d_kernel|small_d_kernel|large_d_kernel)")
 
 
 class SmokeFailure(RuntimeError):
@@ -741,7 +744,8 @@ def main(argv=None):
         if line.startswith("== "):
             print(f"phase 1: nvcc {line[3:]}")
     kernels = ptxas_kernels(report)
-    for kind in ("small_d_kernel", "large_d_kernel", "small_d_wide_3_tf32",
+    for kind in ("small_d_kernel", "large_d_kernel",
+                 "one_chunk_large_d_kernel", "small_d_wide_3_tf32",
                  "small_d_wide_3_bf16", "small_d_wide_8_tf32",
                  "small_d_wide_8_bf16", "large_d_wide_tf32",
                  "large_d_wide_bf16"):
@@ -763,8 +767,16 @@ def main(argv=None):
         print(f"phase 1: {kind}<{args}> ({what}): {found[0][0]} registers, "
               f"{found[0][1]} bytes spilled, wgmma serialised: "
               f"{(kind, args) in serialized_kernels}")
-        if kind.startswith("large_d_wide"):   # rebuilt for this card
+        if kind.startswith(("large_d_wide", "one_chunk")):   # for this card
             check(found[0][1] == 0, f"{kind}<{args}> spills")
+    # The one-chunk kernel's overlap needs its wgmma groups unserialised.
+    one_chunk = {(k, a) for k, a, _, _ in kernels
+                 if k == "one_chunk_large_d_kernel"}
+    print(f"phase 1: {len(serialized_kernels & one_chunk)} of "
+          f"{len(one_chunk)} one_chunk_large_d_kernel instantiations have "
+          "their wgmma groups serialised by ptxas")
+    check(not serialized_kernels & one_chunk,
+          "ptxas serialises the one-chunk kernel's wgmma groups")
     wide_main = [key for key in MAIN_PATH_KERNELS
                  if key[0].startswith("large_d_wide")]
     print(f"phase 1: {len(serialized_kernels & set(wide_main))} of "
@@ -2623,7 +2635,8 @@ def instantiation(name):
     """(template, arguments as phase 1's ptxas report lists them) of a
     kernel event's name, demangled ("small_d_kernel<0, 3, 1, false, ...>")
     or mangled; None for another kernel."""
-    kind = re.search(r"(small_d_kernel|large_d_kernel)", name)
+    kind = re.search(r"(one_chunk_large_d_kernel|small_d_kernel"
+                     r"|large_d_kernel)", name)
     if kind is None:
         return None
     demangled = re.search(kind.group(1) + r"<([^>]*)>", name)

@@ -14,7 +14,7 @@ memory and spills of every kernel, and each compile's seconds).
 
 Each kernel is a `CudaKernel`: a callable that launches through ctypes,
 raises on a non-zero `cudaError_t`, and counts its launches and the bytes
-the large-D wide kernel's launches staged (as the library reports them);
+the TMA-fed large-D kernels' launches staged (as the library reports them);
 inside `launch_timer()` the library brackets each launch with CUDA events
 on its stream, the kernel's device time without the profiler.
 """
@@ -39,21 +39,24 @@ SOURCE = CSRC / "product.cu"   # the C entry points
 SOURCES = (SOURCE, *(CSRC / f"small_d_{dp}_{scheme}.cu" for dp in (3, 8)
                      for scheme in ("direct", "flash")),
            CSRC / "large_d_tf32.cu", CSRC / "large_d_bf16.cu",
+           CSRC / "large_d_one_chunk.cu",
            # The wide-signal mode (E > 8).
            *(CSRC / f"small_d_wide_{dp}_{tier}.cu" for dp in (3, 8)
              for tier in ("tf32", "bf16")),
            CSRC / "large_d_wide_tf32.cu", CSRC / "large_d_wide_bf16.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "wide.cuh",
-           CSRC / "small_d.cuh", CSRC / "small_d_wide.cuh",
-           CSRC / "large_d.cuh", CSRC / "large_d_wide.cuh")
+HEADERS = (CSRC / "common.cuh", CSRC / "mma.cuh", CSRC / "tma.cuh",
+           CSRC / "wide.cuh", CSRC / "small_d.cuh", CSRC / "small_d_wide.cuh",
+           CSRC / "large_d.cuh", CSRC / "large_d_epilogue.cuh",
+           CSRC / "large_d_wide.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # Extra -D switches of the sources, set by `use_defines` (measurement
 # tools: tools/wide_breakdown.py); none in the package's own build.
 DEFINES = ()
 
-# The kernels' function names (csrc/*.cuh), in a profiler's events'
-# names, demangled or not.
+# The kernels' function names (csrc/*.cuh, csrc/large_d_one_chunk.cu's
+# one_chunk_large_d_kernel among them), in a profiler's events' names,
+# demangled or not.
 KERNEL_NAME = re.compile(r"(?:small|large)_d(?:_wide)?_kernel")
 
 _lock = threading.Lock()
@@ -224,10 +227,10 @@ class CudaKernel:
     mode (a signal of more than 8 columns on the tensor cores), and
     `wide_eblocks` the E blocks of those launches (blocks of signal
     columns on the grid's z dimension, each computing the kernel values
-    once).  `staged_bytes` sums the bytes the large-D wide kernel's TMA
-    loads moved, and `last_staging` is the last launch's (stages of its
-    ring, x resident, bytes), as the library reports them (zeros for the
-    other kernels)."""
+    once).  `staged_bytes` sums the bytes the TMA loads of the large-D
+    wide and one-chunk kernels moved, and `last_staging` is the last
+    launch's (stages of its ring, x resident, bytes), as the library
+    reports them (zeros for the other kernels)."""
 
     def __init__(self, symbol: str):
         self.symbol = symbol

@@ -273,8 +273,8 @@ struct Launch {
 cudaError_t launch_kernel(const void* fn, dim3 grid, dim3 block, void** params, size_t smem,
                           cudaStream_t stream);
 
-// What the last launch staged through TMA (the large-D wide kernel sets it,
-// the others leave it zero): its ring's stages, whether x stayed resident,
+// What the last launch staged through TMA (the large-D wide and one-chunk
+// kernels set it, the others leave it zero): its ring's stages, whether x stayed resident,
 // and the bytes all its blocks' loads moved, as their boxes count them.
 struct Staging {
   int stages, resident;
@@ -282,8 +282,9 @@ struct Staging {
 };
 extern Staging last_staging;
 
-// Defined in small_d_{3,8}_{direct,flash}.cu and large_d_{tf32,bf16}.cu
-// (signals of 1, 2, 4 or 8 columns), small_d_wide_{3,8}_{tf32,bf16}.cu and
+// Defined in small_d_{3,8}_{direct,flash}.cu, large_d_{tf32,bf16}.cu and
+// large_d_one_chunk.cu (signals of 1, 2, 4 or 8 columns; the last with a
+// `run`), small_d_wide_{3,8}_{tf32,bf16}.cu and
 // large_d_wide_{tf32,bf16}.cu (the wide mode, nc > 8; the latter with a
 // `run`); each returns false for a shape it has no instantiation of.
 bool small_d_3_direct_launch(const Shape& s, Launch* out);
@@ -292,6 +293,7 @@ bool small_d_8_direct_launch(const Shape& s, Launch* out);
 bool small_d_8_flash_launch(const Shape& s, Launch* out);
 bool large_d_tf32_launch(const Shape& s, Launch* out);
 bool large_d_bf16_launch(const Shape& s, Launch* out);
+bool large_d_one_chunk_launch(const Shape& s, Launch* out);
 bool small_d_wide_3_tf32_launch(const Shape& s, Launch* out);
 bool small_d_wide_3_bf16_launch(const Shape& s, Launch* out);
 bool small_d_wide_8_tf32_launch(const Shape& s, Launch* out);

@@ -30,10 +30,13 @@
 //     small_d.cuh, the difference form on the FP32 units, four target rows
 //     per thread; bound by the special-function units when it issues about
 //     7 other instructions per pair.
-//   large D (D > 8, padded to whole 64-byte chunks): large_d.cuh, the form
-//     product on the tensor cores (3xTF32 in the float32 tiers, bf16 in the
-//     bfloat16 tier) with the map, masks and signal product applied to the
-//     accumulator fragments in registers.
+//   large D (D > 8, padded to whole 16 bytes): the form product on the
+//     tensor cores (3xTF32 in the float32 tiers, bf16 in the bfloat16 tier)
+//     with the map, masks and signal product applied to the accumulator
+//     fragments in registers.  Rows of at most 32 words in the float32 tiers
+//     (D <= 32): large_d_one_chunk.cu, x resident, y's TF32 planes by TMA,
+//     the next tile's product under the current tile's epilogue; longer rows
+//     and the bfloat16 tier: large_d.cuh, in chunks of 32 words.
 //
 // and in two modes, chosen by E:
 //
@@ -56,8 +59,8 @@
 // wrapper merges them (a sum, or the flash merge).
 //
 // Precision tiers: "float32" and "float32x3" run f32 arithmetic, with the
-// large-D form product in 3xTF32 (f32-accurate; the kernel splits each
-// staged f32 value into TF32 parts in registers).  "bfloat16": the wrapper
+// large-D form product in 3xTF32 (f32-accurate; each f32 value split into
+// TF32 parts, by the kernel or, for TMA-fed sources, once by the wrapper).  "bfloat16": the wrapper
 // rounds the signal to bf16, and the points only at D > 8 (the small-D loop
 // takes f32 points, as the Pallas kernel's VPU form does); the kernel rounds
 // each kernel value (the flash kernel: each exp2 weight) to bf16 before its
@@ -118,7 +121,10 @@ cudaError_t select(const Shape& s, Launch* l) {
                     : (small_d_wide_3_tf32_launch(s, l) || small_d_wide_3_bf16_launch(s, l) ||
                        small_d_wide_8_tf32_launch(s, l) || small_d_wide_8_bf16_launch(s, l));
   } else {
-    found = s.large ? (s.bf16 ? large_d_bf16_launch(s, l) : large_d_tf32_launch(s, l))
+    // Large D in the float32 tiers: rows of one chunk (at most 32 words) take
+    // the one-chunk kernel, longer rows large_d.cuh's.
+    found = s.large ? (s.bf16 ? large_d_bf16_launch(s, l)
+                              : (large_d_one_chunk_launch(s, l) || large_d_tf32_launch(s, l)))
                     : (small_d_3_direct_launch(s, l) || small_d_3_flash_launch(s, l) ||
                        small_d_8_direct_launch(s, l) || small_d_8_flash_launch(s, l));
   }
@@ -246,7 +252,7 @@ int kmb_timer_end(float* ms, int cap, int* count) {
 }
 
 // What the last launch staged (kmb::Staging; zeros but for the large-D
-// wide kernel).
+// wide and one-chunk kernels).
 void kmb_last_staging(int* stages, int* resident, long long* bytes) {
   *stages = kmb::last_staging.stages;
   *resident = kmb::last_staging.resident;

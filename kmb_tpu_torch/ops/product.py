@@ -77,6 +77,9 @@ WIDE_TILE = 32
 # The large-D wide kernel's signal: padded to whole groups of 128 bytes of
 # source columns in both tiers (64 bf16 values), for its TMA loads.
 TMA_SIGNAL_ALIGN = 64
+# The one-chunk large-D kernel (csrc/large_d_one_chunk.cu): rows of at most
+# this many 32-bit words.
+ONE_CHUNK_WORDS = 32
 _MIN_FILL = 0.9  # column splits fill at least this share of every wave
 _MIN_SPLIT_COLUMNS = 512  # ... but give no split fewer source columns
 
@@ -263,14 +266,25 @@ def tf32_split(t):
 
 def tf32_planes(points, rows):
     """The first `rows` staged points (`_stage_points`, rows of whole 16
-    bytes) as the large-D wide kernel's float32-tier operand: (2, rows, D),
-    their TF32 hi parts then their lo parts (`tf32_split`).  The kernel's
-    TMA loads take y's chunks from both planes into its 3xTF32 product
-    (csrc/large_d_wide.cuh), half again the bytes of f32 points and x.
+    bytes) as the float32-tier operand of the large-D kernels that TMA
+    feeds, the wide and the one-chunk kernel: (2, rows, D), their TF32 hi
+    parts then their lo parts (`tf32_split`).  The kernels' TMA loads take
+    y's chunks from both planes into their 3xTF32 product
+    (csrc/large_d_wide.cuh, csrc/large_d_one_chunk.cu).
     The split takes a dozen elementwise passes over the points, so the
     wrapper makes it once per source tensor (`_staged_source`), not once
     per call."""
     return torch.stack(tf32_split(points[:rows]))
+
+
+def one_chunk(d, nc, bf16):
+    """Whether a launch takes the one-chunk large-D kernel
+    (csrc/large_d_one_chunk.cu; chosen in csrc/product.cu, `select`): D >
+    8 whose row, padded to whole 16 bytes, is at most ONE_CHUNK_WORDS
+    words, a narrow signal (`nc` <= 8 columns) and a float32 tier.  Its
+    sources arrive as TF32 planes (`tf32_planes`), like the large-D wide
+    kernel's in the float32 tiers."""
+    return 8 < d <= ONE_CHUNK_WORDS and nc <= 8 and not bf16
 
 
 def merge_direct_states(num, den):
@@ -556,8 +570,10 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
     shift = _as_int32("row_offset - col_offset", row_offset - col_offset)
     kernel_id = _CUDA_KERNEL_ID[spec.name]
     nc, eblocks = signal_plan(e, large, bf16)
-    # The large-D wide kernel's float32 tiers take y as TF32 planes.
-    planes = m_eff if nc > 8 and large and not bf16 else None
+    # The large-D wide kernel's float32 tiers, and the one-chunk kernel,
+    # take y as TF32 planes.
+    short = one_chunk(d, nc, bf16)
+    planes = m_eff if (nc > 8 and large and not bf16) or short else None
 
     def stage_y():
         points, norms = _stage_points(y, spec.point_scale, large=large,
@@ -616,6 +632,8 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
             if n:
                 _launch(_build.FLASH, (xp, yp), signal, (out, *state),
                         **launch)
+                if short:
+                    count("one_chunk_launches")
         with span("matvec.merge"):
             acc, mx, l = merge_flash_states(out, *state)
             acc = acc[:, :e]
@@ -627,6 +645,8 @@ def kernel_matvec_cuda(x, y, b, *, kernel_name: str,
         den = new(splits, n, 1) if needs_den else None
         if n:
             _launch(_build.DIRECT, (xp, yp), signal, (out, den), **launch)
+            if short:
+                count("one_chunk_launches")
     with span("matvec.merge"):
         num, den = merge_direct_states(out, den)
         return _finalize_direct(num[:, :e], den, needs_den=needs_den,

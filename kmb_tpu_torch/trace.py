@@ -20,7 +20,9 @@ the ring's steps and the mesh's gather.  Span names are short and stable
 
 Counters (`count`) are plain integers, always on, like the kernels'
 launch counters: `points_staged`, a staging of points by the kernels'
-wrapper (the runner's rows report it per query).  Read a snapshot
+wrapper (the runner's rows report it per query), and
+`one_chunk_launches`, a launch the wrapper sent to the one-chunk large-D
+kernel (`ops.product.one_chunk`).  Read a snapshot
 (`counters()`) before and after a block; `recording()` keeps the
 difference over its block.
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from kmb_tpu_torch import trace
 from kmb_tpu_torch.ops import _build
 from kmb_tpu_torch.ops import solve
 from kmb_tpu_torch.ops.product import (kernel_matvec, kernel_matvec_torch,
@@ -71,11 +72,12 @@ def test_kernels_match_plain_version(kernel, d, normalize, cuda_points):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kernel", ALL_KERNELS)
-@pytest.mark.parametrize("d", [9, 37, 130])
+@pytest.mark.parametrize("d", [9, 16, 25, 32, 37, 130])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_tile_edges_match_plain_version(tier, kernel, d, normalize,
                                         cuda_points):
-    # D not a multiple of 8 or 32; N and M not multiples of 16, 64 or 128.
+    # D not a multiple of 8 or 32 (and 16, 25, 32: rows of one chunk, the
+    # one-chunk kernel in float32); N and M not multiples of 16, 64 or 128.
     x, y, b = cuda_points(301, 1203, d, 5)
     kw = dict(kernel_name=kernel, normalize_rows=normalize, precision=tier)
     _close(kernel_matvec(x, y, b, **kw), kernel_matvec_torch(x, y, b, **kw),
@@ -84,7 +86,7 @@ def test_tile_edges_match_plain_version(tier, kernel, d, normalize,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("e", [1, 2, 4, 8, 13])
-@pytest.mark.parametrize("d", [3, 64])
+@pytest.mark.parametrize("d", [3, 16, 25, 32, 64])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_signal_widths_match_plain_version(e, d, normalize, cuda_points):
     x, y, b = cuda_points(211, 999, d, e)
@@ -157,7 +159,7 @@ def test_wide_signals_with_limits_and_deferred_states(tier, kernel, d, e,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [3, 64, 130])
+@pytest.mark.parametrize("d", [3, 25, 64, 130])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_limits_ending_inside_a_tile(d, normalize, cuda_points):
     # Row and column limits that end inside a 128-wide tile, the diagonal
@@ -175,6 +177,83 @@ def test_limits_ending_inside_a_tile(d, normalize, cuda_points):
         masked = w.abs() >= 1e29
         assert torch.equal(g.abs() >= 1e29, masked)
         _close(g[~masked], w[~masked])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ALL_KERNELS)
+def test_one_chunk_diagonal_of_equal_points_with_limits(kernel, cuda_points):
+    # D25, x is y: the diagonal mask of the one-chunk kernel (on the pairs
+    # of equal points: equal offsets) through both tile kinds, row and
+    # column limits ending inside a tile of 128, and the deferred states
+    # (flash where the kernel has a log form).
+    _, y, b = cuda_points(1, 1203, 25, 3)
+    for normalize in (False, True):
+        kw = dict(kernel_name=kernel, normalize_rows=normalize,
+                  deferred=True, row_offset=40, col_offset=40,
+                  row_limit=40 + 900, col_limit=40 + 700, mask_diagonal=True)
+        before = trace.counters().get("one_chunk_launches", 0)
+        got = kernel_matvec(y, y, b, **kw)
+        assert trace.counters()["one_chunk_launches"] == before + 1
+        for g, w in zip(got, kernel_matvec_torch(y, y, b, **kw)):
+            if w is None:
+                assert g is None
+                continue
+            masked = w.abs() >= 1e29
+            assert torch.equal(g.abs() >= 1e29, masked)
+            _close(g[~masked], w[~masked])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("m, col_limit", [(1203, 10), (60000, 2**31 - 1)])
+def test_one_chunk_empty_splits(normalize, m, col_limit, cuda_points):
+    # Blocks with no source column: every split when the column limit ends
+    # before the first column (no tensor map is encoded then), and the
+    # empty splits past the end when one row block gets many splits (N =
+    # 100, M = 60000: 117 splits of 640 columns).  Both give the empty
+    # state, as the plain version does.
+    x, y, b = cuda_points(100, m, 25, 1)
+    kw = dict(kernel_name="exponential", normalize_rows=normalize,
+              deferred=True, col_offset=10, col_limit=col_limit)
+    for g, w in zip(kernel_matvec(x, y, b, **kw),
+                    kernel_matvec_torch(x, y, b, **kw)):
+        if w is None:
+            assert g is None
+            continue
+        masked = w.abs() >= 1e29
+        assert torch.equal(g.abs() >= 1e29, masked)
+        if bool((~masked).any()):
+            _close(g[~masked], w[~masked])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, tier, taken", [(25, "float32", True),
+                                            (25, "float32x3", True),
+                                            (37, "float32", False),
+                                            (64, "float32", False),
+                                            (25, "bfloat16", False)])
+def test_one_chunk_launches_are_counted_and_report_their_staging(
+        d, tier, taken, cuda_points):
+    # A float32 flash call whose rows are one chunk (D <= 32) takes the
+    # one-chunk kernel: the counter rises by one and the launch reports its
+    # TMA ring with x resident and every tile's bytes (both y planes and the
+    # signal a tile, per row block).  Longer rows and bf16 keep large_d.cuh,
+    # which stages nothing through TMA.
+    n, m = 300, 1000
+    x, y, b = cuda_points(n, m, d, 1)
+    before = trace.counters().get("one_chunk_launches", 0)
+    kernel_matvec(x, y, b, kernel_name="exponential", normalize_rows=True,
+                  precision=tier)
+    torch.cuda.synchronize()
+    after = trace.counters().get("one_chunk_launches", 0)
+    stages, resident, staged = _build.FLASH.last_staging
+    if taken:
+        assert after == before + 1
+        assert stages >= 4 and resident == 1
+        assert staged >= -(-n // 128) * -(-m // 128) * (2 * 128 * 128 + 512)
+    else:
+        assert after == before
+        assert (stages, resident, staged) == (0, 0, 0)
 
 
 @pytest.mark.cuda

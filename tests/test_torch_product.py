@@ -18,7 +18,7 @@ from kmb_tpu.ops.product import kernel_matvec_pallas, kernel_matvec_xla
 from kmb_tpu_torch.ops import _build
 from kmb_tpu_torch.ops.product import (
     choose_splits, kernel_matvec, kernel_matvec_cuda, kernel_matvec_torch,
-    merge_direct_states, merge_flash_states,
+    merge_direct_states, merge_flash_states, one_chunk,
 )
 
 ALL_KERNELS = ["gaussian", "absolute-exponential", "inverse-distance",
@@ -329,6 +329,24 @@ def test_cuda_wrapper_refuses_cpu_tensors(rng):
 ])
 def test_column_splits_fill_the_card(blocks, slots, m_eff, want):
     assert choose_splits(blocks, slots, m_eff) == want
+
+
+@pytest.mark.parametrize("d,nc,bf16,want", [
+    (8, 1, False, False),    # small D: the FP32-unit difference form
+    (9, 1, False, True),     # 12 words
+    (25, 1, False, True),    # the GloVe-25 attention: 28 words
+    (32, 8, False, True),    # 32 words, the widest narrow signal
+    (33, 1, False, False),   # 36 words: two chunks, large_d.cuh
+    (64, 8, False, False),   # D64 attention: two chunks
+    (784, 1, False, False),
+    (25, 16, False, False),  # the wide mode
+    (25, 1, True, False),    # bfloat16 keeps large_d.cuh
+])
+def test_one_chunk_kernel_takes_rows_of_one_chunk(d, nc, bf16, want):
+    # The wrapper's rule for the one-chunk large-D kernel, which decides
+    # whether it stages y's TF32 planes, is csrc/product.cu's `select`:
+    # D > 8, the row padded to 16 bytes at most 32 words, E <= 8, float32.
+    assert one_chunk(d, nc, bf16) is want
 
 
 @pytest.mark.parametrize("kernel", LOG_KERNELS)
