@@ -7,8 +7,9 @@ In one process (one per card on several cards), for each seed: the cell's
 inputs and engine from that seed, `--queries` queries of the window's
 shape (two passes over the signal pool by default), and the numbers
 check.py compares, for the program's answers and for the control's: the
-plain reference computed one precision below the configuration's (its
-`control`), put in the program's place.  Prints one JSON line per seed:
+plain reference computed one precision below the configuration's (the
+task's `control`), put in the program's place and judged by the same
+task hook.  Prints one JSON line per seed:
 {"seed", "program": {number: value}, "control": {number: value},
 "queries"}.  Not part of a benchmark run.
 """
@@ -67,14 +68,12 @@ def calibrate(args):
                 dist.barrier(group=control)
             if args.rank != 0:
                 continue
-            reference, magnitude = session.reference()
-            ids = [q.signal for q in session.report.queries]
-            _, _, program = check.judge(session.answers, ids, reference,
-                                        magnitude, cell.limits)
-            lowered, _ = session.reference("control")
+            compared, ids = session.compared()
+            _, _, program = check.judge(compared, ids, cell.limits)
+            lowered = cell.task.control(session.inputs, cell.config,
+                                        session.device)
             _, _, control_numbers = check.judge(
-                list(lowered), range(len(lowered)), reference, magnitude,
-                cell.limits)
+                *session.compared(*lowered), cell.limits)
             print(json.dumps({"workload": args.workload, "seed": seed,
                               "queries": len(ids), "program": program,
                               "control": control_numbers}), flush=True)

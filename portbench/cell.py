@@ -2,15 +2,18 @@
 
 from __future__ import annotations
 
+import importlib
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 BENCHMARK = ROOT / "BENCHMARK.json"
 # What data.make_inputs reads of a traffic file; a key it would not read
-# is refused rather than silently ignored.
+# is refused rather than silently ignored.  A task with inputs of its own
+# names its keys in its module's TRAFFIC_KEYS.
 TRAFFIC_KEYS = {"signal_pool", "distribution"}
 
 
@@ -29,6 +32,7 @@ class Cell:
     limits: dict          # number compared -> its limit
     end_to_end: list      # BENCHMARK.json's metrics this cell reports
     per_layer: list
+    task: ModuleType      # tasks/<config's task>.py
 
 
 def load(name, override=None):
@@ -50,11 +54,12 @@ def load(name, override=None):
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
     traffic = load_json(HERE / "traffic" / f"{entry['traffic']}.json")
-    unread = set(traffic) - TRAFFIC_KEYS
+    task = importlib.import_module(f"portbench.tasks.{config['task']}")
+    unread = set(traffic) - getattr(task, "TRAFFIC_KEYS", TRAFFIC_KEYS)
     if unread:
         raise ValueError(f"traffic {entry['traffic']!r}: keys the harness "
                          f"does not read: {sorted(unread)}")
     return Cell(name=name, chips=int(entry["chips"]), config=config,
                 traffic=traffic,
                 check_rows=int(extra["check_rows"]), limits=extra["limits"],
-                end_to_end=e2e, per_layer=per_layer)
+                end_to_end=e2e, per_layer=per_layer, task=task)

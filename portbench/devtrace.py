@@ -4,14 +4,19 @@ One session per process, over the second half of a traced run's window:
 the port's records show that CUPTI may drop the hand kernels' records in a
 later session of a process, never in its first.  The harness marks its
 own work with `record_function` spans named `portbench.<step>`; the
-window is the `portbench.window` span.
+window is the `portbench.window` span.  The port's own spans are records
+named `kmb.<step>` (its `trace.recording(profile=True)`): annotations of
+the host's work, never device time.
 
 `summarize` returns the seconds in which a device operation (a kernel, a
 copy or a set) ran inside the window, the window's length, the ten device
-operations that took most time, and the device's idle time grouped by
-what the host was doing: the harness step and the outermost operation
-under it at the middle of each gap.  It raises `MissingRecords` when the
-session holds fewer records of the hand kernels than they were launched.
+operations that took most time, the device's idle time grouped by what
+the host was doing: the harness step and the outermost operation under
+it at the middle of each gap (the port's outermost span, where one covers
+it), and the idle time in which the host was inside one of the port's
+spans (`port_idle_s`; None where the session holds no `kmb.` record).  It
+raises `MissingRecords` when the session holds fewer records of the hand
+kernels than they were launched.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from collections import defaultdict
 
 WINDOW = "portbench.window"
 STEP = "portbench."
+PORT = "kmb."
 TOP = 10
 
 
@@ -41,9 +47,10 @@ def session(cuda):
 
 
 def _is_device(event):
-    """A device operation: not the device-side copy of a harness span."""
+    """A device operation: not the device-side copy of a harness or port
+    span."""
     return (str(event.device_type).endswith("CUDA")
-            and not event.name.startswith(STEP)
+            and not event.name.startswith((STEP, PORT))
             and not getattr(event, "is_user_annotation", False))
 
 
@@ -97,11 +104,29 @@ def summarize(prof, hand_kernel, launched):
         idle[label((start + end) / 2)] += end - start
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:TOP]
     worst = sorted(idle.items(), key=lambda kv: -kv[1])[:TOP]
+    port = [(max(e.time_range.start, w0), min(e.time_range.end, w1))
+            for e in events if e.name.startswith(PORT)
+            and not str(e.device_type).endswith("CUDA")]
+    port = [(start, end) for start, end in port if end > start]
     return {"busy_s": sum(end - start for start, end in busy) * 1e-6,
             "window_s": (w1 - w0) * 1e-6,
             "hand_kernel_ms": hand_us * 1e-3,
             "device_ops": [[name, us * 1e-6] for name, us in top],
-            "idle_gaps": [[name, us * 1e-6] for name, us in worst]}
+            "idle_gaps": [[name, us * 1e-6] for name, us in worst],
+            "port_idle_s": (_overlap(gaps, _merge(port)) * 1e-6
+                            if port else None)}
+
+
+def _overlap(a, b):
+    """Total length shared by two sorted lists of disjoint intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 def _labeller(events):

@@ -1,0 +1,8 @@
+"""Stagings of points by the port's wrapper per query (its counter
+`points_staged`, readings.per_query), in the attention cell."""
+
+from portbench.readings import per_query
+
+
+def read(measured):
+    return per_query(measured, "points_staged")

@@ -44,7 +44,10 @@ def spread(values):
     if len(values) < 2:
         return None
     q1, _, q3 = statistics.quantiles(values, n=4)
-    return (q3 - q1) / statistics.median(values)
+    median = statistics.median(values)
+    # A count that reads 0 in every run (points staged in the cube) has
+    # no spread relative to its median.
+    return (q3 - q1) / median if median else None
 
 
 def summarize(runs):

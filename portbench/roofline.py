@@ -84,16 +84,6 @@ def card_facts(index):
     return name, float(clock), float(limit)
 
 
-def query_bound_ms(config, ranks, sfu_rate):
-    """The least ms of one query's kernel work on one of `ranks` cards:
-    its share of the targets against every source."""
-    n = -(-config["n_targets"] // ranks)
-    return bound_ms(n, config["n_sources"], config["dimension"],
-                    config["signal_columns"], launch_kind(config),
-                    config["normalize_rows"], config["precision"],
-                    sfu_rate)[0]
-
-
 def launch_kind(config):
     """"flash" for row-normalised kernels with a log form (the base-2
     online softmax), else "direct"."""

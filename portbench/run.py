@@ -9,9 +9,10 @@ the engine's `prepare_data` and `fit`, one warm query) is `setup_s`.
 Then queries run back to back for `--seconds`.  With `--trace 0` the
 line carries the cell's end-to-end metrics, with `--trace 1` its
 per-layer metrics (see session.py for what a traced window adds).  After
-the window the program's state is freed and the plain reference judges
-every answer at the checked rows (check.py); each number compared is
-printed beside its limit, last on standard error and last in the line.
+the window the program's state is freed and the cell's task judges what
+it kept of every answer against its plain reference (check.py); each
+number compared is printed beside its limit, last on standard error and
+last in the line.
 
 A cell on several cards runs one process per card: this process is rank
 0 and starts the others (the same command with `--rank`), which print
@@ -177,10 +178,8 @@ def run_cell(args, prefix=None):
             dist.destroy_process_group()
         if args.rank != 0:
             return None
-        reference, magnitude = session.reference()
-        correct, failed, numbers = check.judge(
-            session.answers, [q.signal for q in session.report.queries],
-            reference, magnitude, cell.limits)
+        correct, failed, numbers = check.judge(*session.compared(),
+                                               cell.limits)
         codes = stop_ranks(procs)
         procs = []
         if any(codes):
@@ -195,7 +194,7 @@ def run_cell(args, prefix=None):
         config=cell.config, world=world, setup_s=setup_s,
         window_s=window_s, reports=reports,
         queries=reports[0].queries,
-        pairs=session.task.pairs(cell.config), bound_ms=None)
+        pairs=session.task.pairs(cell.config), launch_bound_ms=None)
     device = {"platform": "gpu" if cuda else "cpu", "count": world}
     if cuda:
         index = torch.cuda.current_device()
@@ -206,7 +205,7 @@ def run_cell(args, prefix=None):
         if facts is not None:
             device["power_limit_w"] = facts[2]
             sms = torch.cuda.get_device_properties(index).multi_processor_count
-            measured.bound_ms = roofline.query_bound_ms(
+            measured.launch_bound_ms = session.task.launch_bound_ms(
                 cell.config, world,
                 roofline.special_function_rate(sms, facts[1]))
     metrics = {}

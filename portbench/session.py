@@ -11,8 +11,17 @@ program's traffic.
 A traced run splits its window in two halves.  In the first, every query
 starts from a barrier of the ranks, the port's launch timer times each
 kernel launch, the launch counters and the collective recorder count, and
-each rank's query time and the host time of each of its steps are kept.  In the second, one torch.profiler
-session covers the queries.  An untraced run does none of this.
+each rank's query time and the host time of each of its steps are kept;
+each query also runs inside the port's own `trace.recording()`, whose
+spans give the self time of each of the port's steps and whose counters
+give what they counted.  In the second, one torch.profiler session covers
+the queries, inside `trace.recording(profile=True)`, so that the port's
+steps sit on the device's timeline as `kmb.` records.  An untraced run
+does none of this.
+
+What the run keeps of each answer, and how it is judged afterwards, is
+the cell's task's (tasks/<task>.py): the session only hands it the
+inputs, the configuration and the kept answers.
 """
 
 from __future__ import annotations
@@ -20,7 +29,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
-import importlib
 import time
 from dataclasses import dataclass, field
 
@@ -32,6 +40,11 @@ from torch.profiler import record_function
 from kmb_tpu_torch.ops import _build
 from portbench import data, devtrace
 
+try:   # the port's spans and counters, where the port has them
+    from kmb_tpu_torch import trace as port_trace
+except ImportError:
+    port_trace = None
+
 
 @dataclass
 class Query:
@@ -41,6 +54,8 @@ class Query:
     launch_ms: list = None        # each launch's device ms (counted half)
     launches: dict = None         # launches by kernel (counted half)
     step_ms: dict = None          # host ms of each step (counted half)
+    span_ms: dict = None          # self ms of each port span (counted half)
+    counts: dict = None           # the port's counters' deltas (same)
 
     @property
     def ms(self):
@@ -74,6 +89,15 @@ def _launch_counts():
     return {k.symbol: k.launches for k in _build.KERNELS}
 
 
+def _port_recording(on, profile=False):
+    """The port's recording of its spans and counters (with `profile`,
+    each span also a profiler record), where `on` and the port has a
+    trace module."""
+    if port_trace is None or not on:
+        return contextlib.nullcontext()
+    return port_trace.recording(profile=profile)
+
+
 class Session:
     def __init__(self, cell, seed, *, device, rank=0, world=1, control=None):
         self.cell = cell
@@ -82,8 +106,7 @@ class Session:
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.rank, self.world, self.control = rank, world, control
-        self.task = importlib.import_module(
-            f"portbench.tasks.{self.config['task']}")
+        self.task = cell.task
         self.report = Report()
         self.answers = []
 
@@ -93,8 +116,9 @@ class Session:
         """Inputs from the seed, the engine built and fitted, and one warm
         query of the window's shape."""
         stamps = [time.perf_counter()]
-        self.inputs = data.make_inputs(self.config, self.cell.traffic,
-                                       self.seed, self.cell.check_rows)
+        make_inputs = getattr(self.task, "make_inputs", data.make_inputs)
+        self.inputs = make_inputs(self.config, self.cell.traffic, self.seed,
+                                  self.cell.check_rows)
         stamps.append(time.perf_counter())
         self.engine = self.task.build(self.config, self.device)
         self.task.prepare(self.engine, self.inputs)
@@ -134,7 +158,7 @@ class Session:
         tracer = (devtrace.session(self.cuda) if profiled
                   else contextlib.nullcontext())
         launched = sum(_launch_counts().values())
-        with tracer as prof:
+        with tracer as prof, _port_recording(profiled, profile=True):
             self._barrier()
             with recorder as tally, record_function(devtrace.WINDOW):
                 start = time.perf_counter()
@@ -171,7 +195,7 @@ class Session:
         steps = {}
         span = (functools.partial(_timed_span, steps) if counted
                 else _span)
-        with timer as times:
+        with timer as times, _port_recording(counted) as rec:
             t0 = time.perf_counter()
             answer = self.task.ask(self.engine, signal, span)
             t1 = time.perf_counter()
@@ -181,9 +205,12 @@ class Session:
             query.launches = {k: after[k] - before[k] for k in after}
             query.launch_ms = list(times) if times is not None else []
             query.step_ms = steps
+            if rec is not None:
+                query.span_ms = rec.self_ms()
+                query.counts = dict(rec.counts)
         self.report.queries.append(query)
         with _span("loop"):
-            self.answers.append(np.array(answer[self.inputs.rows]))
+            self.answers.append(self.task.keep(self.inputs, answer))
 
     # -- after the window ----------------------------------------------------
 
@@ -207,19 +234,11 @@ class Session:
         if self.cuda:
             torch.cuda.empty_cache()
 
-    def reference(self, which="product"):
-        """The plain reference at the checked rows for every pool signal:
-        (S, R, E) float64 products of each signal and of its absolute
-        value.  which="control": the lowered version's products."""
-        module = importlib.import_module(
-            f"portbench.references.{self.config['reference']}")
-        pool, rows = self.inputs.pool, self.inputs.rows
-        s, m, e = pool.shape
-        signals = pool.transpose(1, 0, 2).reshape(m, s * e)
-        out = getattr(module, which)(
-            self.inputs.targets[rows], self.inputs.sources,
-            np.concatenate([signals, np.abs(signals)], axis=1),
-            kernel=self.config["kernel"],
-            normalize_rows=self.config["normalize_rows"], device=self.device)
-        out = out.reshape(len(rows), 2, s, e).transpose(1, 2, 0, 3)
-        return out[0], out[1]
+    def compared(self, answers=None, signal_ids=None):
+        """The task's (got, wanted, size) of each kept answer, by default
+        the window's, with their signal ids."""
+        if answers is None:
+            answers = self.answers
+            signal_ids = [q.signal for q in self.report.queries]
+        return (self.task.compared(self.inputs, self.config, answers,
+                                   signal_ids, self.device), signal_ids)

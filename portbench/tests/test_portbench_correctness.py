@@ -24,10 +24,9 @@ def test_control_fails_the_limits(name, seed):
     session = Session(c, seed, device="cpu")
     session.inputs = data.make_inputs(c.config, c.traffic, seed,
                                       c.check_rows)
-    reference, magnitude = session.reference()
-    lowered, _ = session.reference("control")
-    correct, failed, numbers = check.judge(
-        list(lowered), range(len(lowered)), reference, magnitude, c.limits)
+    lowered, ids = c.task.control(session.inputs, c.config, "cpu")
+    correct, failed, numbers = check.judge(*session.compared(lowered, ids),
+                                           c.limits)
     assert not correct and failed == len(lowered)
     assert numbers["err_rms"] > c.limits["err_rms"]
 
@@ -36,16 +35,18 @@ def test_judge_counts_each_failed_answer():
     ref = np.array([[[1.0], [2.0]], [[3.0], [-1.0]]])
     size = np.abs(ref) + 1.0
     answers = [ref[0], ref[1] + 1e-3, ref[0] + [[0.0], [1e-9]], ref[1]]
+    ids = [0, 1, 0, 1]
     limits = {"err_max": 1e-6, "err_rms": 1e-6, "repeat_gap": 0.0}
-    correct, failed, numbers = check.judge(answers, [0, 1, 0, 1], ref, size,
-                                           limits)
+    correct, failed, numbers = check.judge(
+        [(a, ref[s], size[s]) for a, s in zip(answers, ids)], ids, limits)
     assert not correct and failed == 3
     assert numbers["repeat_gap"] == pytest.approx(1e-3)
     # Measured against the size of the terms: RMS of (4, 2) for signal 1.
     assert numbers["err_max"] == pytest.approx(1e-3 / np.sqrt(10))
-    nan = [ref[0] * float("nan")]
-    correct, failed, numbers = check.judge(nan, [0], ref, size, limits)
+    nan = [(ref[0] * float("nan"), ref[0], size[0])]
+    correct, failed, numbers = check.judge(nan, [0], limits)
     assert not correct and failed == 1 and numbers["err_max"] is None
+    assert check.judge([], [], limits)[0] is False
 
 
 FAULTS = [(name, fault) for name in CELLS

@@ -12,7 +12,8 @@ from portbench.session import Query, Report
 DIRECT, FLASH = "kmb_direct_matvec", "kmb_flash_matvec"
 
 
-def query(start, ms, kernel=None, launch_ms=(), signal=0, query_ms=None):
+def query(start, ms, kernel=None, launch_ms=(), signal=0, query_ms=None,
+          span_ms=None, counts=None):
     q = Query(start, start + ms / 1e3, signal)
     if kernel is not None:
         q.launches = {DIRECT: 0, FLASH: 0}
@@ -20,14 +21,16 @@ def query(start, ms, kernel=None, launch_ms=(), signal=0, query_ms=None):
         q.launch_ms = list(launch_ms)
         q.step_ms = {"stage": 1.0, "query": ms - 2.0 if query_ms is None
                      else query_ms, "read": 1.0}
+        q.span_ms, q.counts = span_ms, counts
     return q
 
 
 def measured(reports, *, dimension=3, world=1, bound_ms=250.0):
+    """`bound_ms`: the least time of one launch."""
     return SimpleNamespace(
         config={"dimension": dimension}, world=world, setup_s=7.5,
         window_s=2.0, reports=reports, queries=reports[0].queries,
-        pairs=2**40, bound_ms=bound_ms)
+        pairs=2**40, launch_bound_ms=bound_ms)
 
 
 def read(name, m):
@@ -59,6 +62,63 @@ def test_counted_half_readers():
     assert read("small_d_roofline", measured(m.reports, bound_ms=None)) \
         is None
     assert read("lockstep_ms.ring4", m) is None
+    # Without the port's spans and counters (a port with no trace module).
+    for name in ("stage_ms.attn", "fence_ms.attn", "read_ms.attn",
+                 "points_staged_per_query", "points_staged_per_query.attn",
+                 "one_chunk_launches_per_query.attn",
+                 "port_idle_share.attn"):
+        assert read(name, m) is None, name
+
+
+@pytest.mark.parametrize("launches", [1, 4, 150])
+def test_roofline_share_counts_every_launch(launches):
+    # Each launch has the least time 2 ms and takes 5 ms on the device; a
+    # query that launched the other kernel too is left out.
+    qs = [query(i, 40.0 * launches, DIRECT, [5.0] * launches)
+          for i in range(3)]
+    mixed = query(3, 40.0, DIRECT, [5.0, 5.0])
+    mixed.launches[FLASH] = 1
+    m = measured([Report(queries=qs + [mixed])], bound_ms=2.0)
+    assert read("small_d_roofline", m) == pytest.approx(100 * 2 / 5)
+    uneven = [query(0, 40.0, DIRECT, [4.0]),
+              query(1, 40.0, DIRECT, [6.0] * launches)]
+    m = measured([Report(queries=uneven)], bound_ms=2.0)
+    assert read("small_d_roofline", m) == pytest.approx(
+        100 * 2 * (1 + launches) / (4 + 6 * launches))
+
+
+def test_span_and_counter_readers():
+    spans = [{"engine.stage_signal": 1.3, "matvec.stage_targets": 0.05,
+              "matvec.stage_signal": 0.02, "matvec.launch": 0.1,
+              "fence.wait": 7.4, "fence.check": 0.2, "engine.read": 0.2 + i}
+             for i in range(3)]
+    counts = [{"points_staged": 1, "one_chunk_launches": 1}, {},
+              {"points_staged": 2}]
+    qs = [query(i, 10.0, FLASH, [7.5], span_ms=sp, counts=ct)
+          for i, (sp, ct) in enumerate(zip(spans, counts))]
+    m = measured([Report(queries=qs + [query(9, 10.0)])], dimension=25)
+    assert read("stage_ms.attn", m) == pytest.approx(1.37)
+    assert read("fence_ms.attn", m) == pytest.approx(0.2)
+    assert read("read_ms.attn", m) == pytest.approx(1.2)
+    assert read("points_staged_per_query", m) == 1.0
+    assert read("points_staged_per_query.attn", m) == 1.0
+    assert read("one_chunk_launches_per_query.attn", m) == pytest.approx(
+        1 / 3)
+    # The cube stages nothing: 0, not "nothing to read".
+    none = [query(i, 10.0, DIRECT, [7.5], span_ms={}, counts={})
+            for i in range(2)]
+    assert read("points_staged_per_query",
+                measured([Report(queries=none)])) == 0.0
+
+
+def test_port_idle_share_reader():
+    ranks = [Report(queries=[query(0, 1.0)],
+                    trace={"busy_s": 8.0, "window_s": 10.0,
+                           "port_idle_s": 1.0 + r}) for r in range(2)]
+    assert read("port_idle_share.attn", measured(ranks)) == pytest.approx(
+        100 * 3.0 / 20.0)
+    ranks[0].trace["port_idle_s"] = ranks[1].trace["port_idle_s"] = None
+    assert read("port_idle_share.attn", measured(ranks)) is None
 
 
 def test_flash_roofline_reads_only_flash_queries():
@@ -80,7 +140,7 @@ def test_readers_over_ranks():
                             collective_queries=3,
                             trace={"busy_s": 9.0 + r / 10,
                                    "window_s": 10.0}))
-    m = measured(ranks, world=4, bound_ms=263.0)
+    m = measured(ranks, world=4, bound_ms=263.0 / 4)
     # Rank 3 waits longest: 345 + i - 4 * 82 ms, i = 0, 1, 2.
     assert read("lockstep_ms.ring4", m) == pytest.approx(18.0)
     assert read("collective_mb_per_query.ring4", m) == pytest.approx(
@@ -144,3 +204,37 @@ def test_device_trace_refuses_lost_records():
     with pytest.raises(devtrace.MissingRecords):
         devtrace.summarize(Prof(trace_events()), re.compile("small_d"),
                            launched=2)
+
+
+def port_events(annotated=True):
+    """trace_events() with the port's spans: the host's `kmb.` records
+    and, where `annotated`, their device-side copies flagged as
+    annotations; otherwise copies known only by their name."""
+    stage = Event("kmb.engine.stage_signal", 1, 9,
+                  children=[Event("aten::to", 2, 9)])
+    fence = Event("kmb.fence.check", 52, 60,
+                  children=[Event("aten::item", 55, 60)])
+    events = [e for e in trace_events()
+              if e.name not in ("portbench.stage", "portbench.query")]
+    events += [Event("portbench.stage", 0, 10, children=[stage]),
+               Event("portbench.query", 10, 60, children=[fence]),
+               stage, fence,
+               Event("kmb.fence.check", 50, 61, device=True)]
+    events[-1].is_user_annotation = annotated
+    return events
+
+
+@pytest.mark.parametrize("annotated", [True, False])
+def test_device_trace_with_the_port_records(annotated):
+    hand = re.compile(r"small_d_kernel")
+    plain = devtrace.summarize(Prof(trace_events()), hand, launched=1)
+    out = devtrace.summarize(Prof(port_events(annotated)), hand, launched=1)
+    for key in ("busy_s", "window_s", "hand_kernel_ms", "device_ops"):
+        assert out[key] == plain[key], key
+    assert plain["port_idle_s"] is None
+    gaps = dict(out["idle_gaps"])
+    # The gap 50-61 is named by the port's span over its middle (55.5).
+    assert gaps["query/kmb.fence.check"] == pytest.approx(11e-6)
+    assert gaps["stage/kmb.engine.stage_signal"] == pytest.approx(5e-6)
+    # Idle inside kmb. spans: 1-5 and 9 (stage), 52-60 (fence).
+    assert out["port_idle_s"] == pytest.approx((4 + 0 + 8) * 1e-6)

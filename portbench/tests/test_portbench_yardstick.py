@@ -29,10 +29,12 @@ def test_special_function_rate():
      "special-function units"),
 ])
 def test_least_time_of_each_cell(cell, ms, unit):
-    config = cells.load(cell).config
-    world = cells.load(cell).chips
-    assert roofline.query_bound_ms(config, world, SFU) == pytest.approx(
-        ms, rel=1e-12)
+    c = cells.load(cell)
+    config, world = c.config, c.chips
+    # One launch a query on one card; four chunk launches a rank a query
+    # in the ring.
+    assert c.task.launch_bound_ms(config, world, SFU) * world == \
+        pytest.approx(ms, rel=1e-12)
     n = -(-config["n_targets"] // world)
     _, kind, engine = roofline.bound_ms(
         n, config["n_sources"], config["dimension"], 1,
