@@ -261,9 +261,10 @@ class TorchSolverCG(_TorchAlgorithm, BaseSolver):
         self._set_name()
 
     def prepare_query(self, *, target_signal):
-        self.rhs = self._stage(target_signal)
-        # The iterative refinement's outer residual is float64.
-        self.rhs64 = self._stage(target_signal, np.float64)
+        with span("engine.stage_signal"):
+            self.rhs = self._stage(target_signal)
+            # The iterative refinement's outer residual is float64.
+            self.rhs64 = self._stage(target_signal, np.float64)
 
     def query(self):
         # The indefinite kernel: the block-abs Jacobi blocks are an SPD

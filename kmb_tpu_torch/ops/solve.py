@@ -45,6 +45,7 @@ from kmb_tpu_torch.algorithms.bruteforce_numpy import blocked_kernel_product
 from kmb_tpu_torch.ops.blr import _cluster
 from kmb_tpu_torch.ops.kernels import get_kernel
 from kmb_tpu_torch.ops.product import kernel_matvec, kernel_matvec_torch
+from kmb_tpu_torch.trace import count, span
 from kmb_tpu_torch.utils import highest_precision
 
 # Kernels whose Gram matrix is symmetric positive (semi-)definite on
@@ -210,38 +211,49 @@ def _pcg(matvec: Callable, rhs, tol: float, max_iters: int,
     solver, parallel/sharded.py): every column dot product goes through
     it.  The stop rule reads only such sums, so every rank takes the same
     branch at every iteration, as the collectives inside `matvec` need.
+
+    Traced (kmb_tpu_torch.trace): the span `pcg` holds the whole solve,
+    `pcg.precond` each application of the preconditioner and `pcg.stop`
+    each host read of the stop rule's flags; the counter `pcg_iterations`
+    counts the iterations (one `matvec` each).
     """
-    rhs = rhs.float()
-    apply_precond = (lambda v: v) if precond is None else precond
-    b = torch.zeros_like(rhs)
-    r = rhs
-    p = apply_precond(r)
-    rz, rs = _column_sums(allreduce, r * p, r * r)
-    rhs_sq = rs
-    target_sq = (float(tol) ** 2) * rhs_sq
-    best_b, best_rs = b, rs
-    stall = it = 0
-    (unmet,) = _read_flags(torch.any(rs > target_sq))
-    while it < max_iters and stall < PCG_STALL_WINDOW and unmet:
-        kp = matvec(p)
-        (denom,) = _column_sums(allreduce, p * kp)
-        alpha = torch.where(denom != 0.0, rz / denom, 0.0)
-        b = b + alpha * p
-        r = r - alpha * kp
-        z = apply_precond(r)
-        rz_new, rs = _column_sums(allreduce, r * z, r * r)
-        beta = torch.where(rz != 0.0, rz_new / rz, 0.0)
-        p = z + beta * p
-        rz = rz_new
-        improved = rs < best_rs
-        best_b = torch.where(improved[None, :], b, best_b)
-        best_rs = torch.minimum(rs, best_rs)
-        it += 1
-        any_improved, unmet = _read_flags(torch.any(improved),
-                                        torch.any(rs > target_sq))
-        stall = 0 if any_improved else stall + 1
-    rel = torch.sqrt(torch.max(best_rs / torch.clamp_min(rhs_sq, 1e-30)))
-    return best_b, it, float(rel)
+    with span("pcg"):
+        rhs = rhs.float()
+        apply_precond = (lambda v: v) if precond is None else precond
+        b = torch.zeros_like(rhs)
+        r = rhs
+        with span("pcg.precond"):
+            p = apply_precond(r)
+        rz, rs = _column_sums(allreduce, r * p, r * r)
+        rhs_sq = rs
+        target_sq = (float(tol) ** 2) * rhs_sq
+        best_b, best_rs = b, rs
+        stall = it = 0
+        with span("pcg.stop"):
+            (unmet,) = _read_flags(torch.any(rs > target_sq))
+        while it < max_iters and stall < PCG_STALL_WINDOW and unmet:
+            kp = matvec(p)
+            (denom,) = _column_sums(allreduce, p * kp)
+            alpha = torch.where(denom != 0.0, rz / denom, 0.0)
+            b = b + alpha * p
+            r = r - alpha * kp
+            with span("pcg.precond"):
+                z = apply_precond(r)
+            rz_new, rs = _column_sums(allreduce, r * z, r * r)
+            beta = torch.where(rz != 0.0, rz_new / rz, 0.0)
+            p = z + beta * p
+            rz = rz_new
+            improved = rs < best_rs
+            best_b = torch.where(improved[None, :], b, best_b)
+            best_rs = torch.minimum(rs, best_rs)
+            it += 1
+            count("pcg_iterations")
+            with span("pcg.stop"):   # the host waits for the iteration
+                any_improved, unmet = _read_flags(torch.any(improved),
+                                                torch.any(rs > target_sq))
+            stall = 0 if any_improved else stall + 1
+        rel = torch.sqrt(torch.max(best_rs / torch.clamp_min(rhs_sq, 1e-30)))
+        return best_b, it, float(rel)
 
 
 def _beta_sq(value):
@@ -435,6 +447,10 @@ def nystrom_factors(matvec: Callable, omega, *, method: str = "svd",
     `matvec` that returns its rows of K @ omega, the global row count `m`
     and `_pcg`'s `allreduce`; the sketch's norm and the Grams are summed
     over the ranks, and each rank gets its rows of U.
+
+    Traced: the span `nystrom.factor` holds the build, and
+    `nystrom.sketch` inside it the sketch's `matvec`; the factor's self
+    time is the rest (orthonormalisation, Grams, eigh, SVD).
     """
     _check_choice("method", method, NYSTROM_METHODS)
     if allreduce is not None and method != "gram":
@@ -442,7 +458,7 @@ def nystrom_factors(matvec: Callable, omega, *, method: str = "svd",
     omega = omega.float()
     if m is None:
         m = omega.shape[0]
-    with highest_precision():
+    with highest_precision(), span("nystrom.factor"):
         if method == "svd":
             omega, _ = torch.linalg.qr(omega)
         else:
@@ -451,7 +467,8 @@ def nystrom_factors(matvec: Callable, omega, *, method: str = "svd",
                 _reduce(allreduce, omega64.T @ omega64), upper=True)
             omega = torch.linalg.solve_triangular(
                 r, omega64, upper=True, left=False).float()
-        sketch = matvec(omega.contiguous())                # K @ omega
+        with span("nystrom.sketch"):
+            sketch = matvec(omega.contiguous())            # K @ omega
         # Stabilising shift at the float32 noise scale of the sketch.
         if allreduce is None:
             norm = torch.linalg.norm(sketch)

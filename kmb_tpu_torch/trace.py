@@ -2,8 +2,9 @@
 
 A span marks one step of the port where it happens: the engine's staging
 and read-back, the wrapper's staging, plan, launch and merge, the fence,
-the ring's steps and the mesh's gather.  Span names are short and stable
-(`engine.read`, `matvec.launch`, `ring.wait`, ...).
+the ring's steps, the mesh's gather and the Krylov loop's steps.  Span
+names are short and stable (`engine.read`, `matvec.launch`, `ring.wait`,
+...).
 
 - Off, the default: `span()` hands out one shared no-op context.  A span
   site then costs one module-level check: no allocation, no
@@ -18,11 +19,17 @@ the ring's steps and the mesh's gather.  Span names are short and stable
   `KMB_PROFILE_DIR` traces).  A profiler session alone does not turn the
   spans on.
 
+The Krylov layer (`ops/solve.py`): `pcg` around a conjugate-gradient
+solve, `pcg.precond` and `pcg.stop` inside it (the preconditioner's
+application, the host's read of the stop rule), and `nystrom.factor`
+around a Nystrom build with `nystrom.sketch` (its sketch) inside.
+
 Counters (`count`) are plain integers, always on, like the kernels'
 launch counters: `points_staged`, a staging of points by the kernels'
-wrapper (the runner's rows report it per query), and
+wrapper (the runner's rows report it per query),
 `one_chunk_launches`, a launch the wrapper sent to the one-chunk large-D
-kernel (`ops.product.one_chunk`).  Read a snapshot
+kernel (`ops.product.one_chunk`), and `pcg_iterations`, an iteration of
+the conjugate-gradient loop (`ops.solve._pcg`).  Read a snapshot
 (`counters()`) before and after a block; `recording()` keeps the
 difference over its block.
 
